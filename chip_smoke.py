@@ -1,0 +1,284 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``nisqa_tpu_torch``) on one CUDA card.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py [--seed 0] [--reps 5]
+
+Phases, each of which raises on failure (the script then exits non-zero and
+never prints its last line):
+
+  1. device: requires CUDA; prints versions and the card's name and power
+     limit (nvidia-smi);
+  2. build: compiles the CUDA kernel library from ``nisqa_tpu_torch/csrc``;
+  3. kernel vs twin: ``fused_dft_mel`` against ``dft_mel_reference`` on the
+     card at the main path's shapes (48 kHz with N = 32 x 5,211 frame rows,
+     a ragged N, and 16 kHz with K = 2,049), both front-end modes, with
+     CUDA-event times of each;
+  4. model: the released NISQA_DIM weights (``tests/goldens/g2_dim.npz``)
+     against their torch golden at "highest" precision;
+  5. main path: ``python -m nisqa_tpu_torch.run_predict --mode predict_dir
+     --bs 32`` (through its ``main``) over a seeded corpus of 64 48 kHz and
+     4 16 kHz WAVs with a reference-format ``.tar`` of those weights; counts
+     the kernel's launches in that run, and reruns the corpus at "highest"
+     with the kernel and with the twin front-end.
+
+The last two lines are a JSON record of the kernel and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the released model's front-end (nisqa_tpu/config/train_nisqa_cnn_sa_ap.yaml)
+YAML_GEOMETRY = {
+    "ms_sr": None, "ms_fmax": 20000, "ms_n_fft": 4096, "ms_hop_length": 0.01,
+    "ms_win_length": 0.02, "ms_n_mels": 48, "ms_seg_length": 15,
+    "ms_seg_hop_length": 4, "ms_max_segments": 1300, "ms_channel": None,
+}
+BATCH = 32
+EXACT_BOUND, FAST_BOUND = 1e-5, 1e-4  # kernel vs twin, relative to max|twin|
+GOLDEN_BOUND = 2e-4                   # model vs torch golden, absolute
+PASS_BOUND = 1e-3                     # kernel vs twin front-end predictions
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, msg: str):
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]
+
+
+def event_ms(fn) -> float:
+    """Device time of one call of ``fn``, in ms, from CUDA events."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def kernel_vs_twin(seed: int, reps: int, card: str):
+    """Phase 3. Returns (rows of results, the main-path row)."""
+    from nisqa_tpu_torch.data.pipeline import MsConfig, front_end_consts, matmul_precision
+    from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
+
+    ms = MsConfig(YAML_GEOMETRY)
+    n_main = BATCH * ms.frames_for_bucket(ms.max_segments)  # 32 x 5,211 = 166,752
+    rng = np.random.default_rng(seed)
+    results = []
+    for sr, n in ((48000, n_main), (48000, 43), (16000, n_main)):
+        c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(ms, sr, "i16").items()}
+        span, k = c["w_re"].shape
+        m = c["fb_t"].shape[1]
+        frames = np.clip(np.round(rng.standard_normal((n, span)) * 3000), -32768, 32767)
+        frames = torch.from_numpy(frames.astype(np.float32)).cuda()
+        args = (frames, c["w_re"], c["w_im"], c["fb_t"])
+        for mode, bf16, bound in (("exact", False, EXACT_BOUND), ("fast", True, FAST_BOUND)):
+            with matmul_precision("highest"):  # the twin in float32, TF32 off
+                out = fused_dft_mel(*args, bf16=bf16)
+                ref = dft_mel_reference(*args, bf16=bf16)
+                torch.cuda.synchronize()
+                abs_err = (out - ref).abs().max().item()
+                rel_err = abs_err / ref.abs().max().item()
+                del out, ref
+                k_ms, t_ms = [], []
+                for _ in range(reps):  # alternate kernel and twin
+                    k_ms.append(event_ms(lambda: fused_dft_mel(*args, bf16=bf16)))
+                    t_ms.append(event_ms(lambda: dft_mel_reference(*args, bf16=bf16)))
+            row = {"sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
+                   "max_abs_err": abs_err, "rel_err": rel_err, "bound": bound,
+                   "kernel_ms": float(np.median(k_ms)), "twin_ms": float(np.median(t_ms))}
+            print("kernel_vs_twin " + json.dumps(row) + f" card: {card}", flush=True)
+            check(math.isfinite(rel_err) and rel_err <= bound,
+                  f"fused_dft_mel disagrees with its twin: {row}")
+            results.append(row)
+        del frames, args, c
+        torch.cuda.empty_cache()
+    main_row = next(r for r in results if r["sr"] == 48000 and r["N"] == n_main and r["mode"] == "fast")
+    return results, main_row
+
+
+def model_golden():
+    """Phase 4: released NISQA_DIM weights vs the torch golden on the card."""
+    from nisqa_tpu_torch.data.pipeline import matmul_precision
+    from nisqa_tpu_torch.models.nisqa import build_model
+
+    z = np.load(os.path.join(REPO, "tests", "goldens", "g2_dim.npz"), allow_pickle=False)
+    meta = json.loads(str(z["meta"]))
+    sd = {k[4:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd::")}
+    model = build_model(meta["model"], meta["model_args"])
+    model.load_state_dict(sd, strict=True)
+    model = model.cuda().eval()
+    with torch.inference_mode(), matmul_precision("highest"):
+        y = model(torch.from_numpy(z["x"][:, :, 0]).cuda(), torch.from_numpy(z["n_wins"]).cuda())
+    err = float(np.abs(y.cpu().numpy() - z["y"]).max())
+    print(f"model g2_dim (NISQA_DIM) vs torch golden at 'highest': max_abs_err={err} "
+          f"bound={GOLDEN_BOUND}", flush=True)
+    check(y.shape == z["y"].shape and err <= GOLDEN_BOUND, f"g2_dim golden off by {err}")
+    return meta, sd
+
+
+def write_corpus(out_dir: str, seed: int):
+    """64 PCM16 WAVs at 48 kHz, 3-30 s log-uniform (the repo bench's
+    recipe), plus 4 at 16 kHz. Returns the total audio seconds."""
+    rng = np.random.default_rng(seed)
+    total = 0.0
+    for i, sr in enumerate([48000] * 64 + [16000] * 4):
+        n = int(sr * float(np.exp(rng.uniform(np.log(3.0), np.log(30.0)))))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(100, 300)
+        y = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 3.1 * f0 * t)
+             + 0.05 * rng.standard_normal(n))
+        pcm = np.clip(np.round(y * 32767.0), -32768, 32767).astype("<i2")
+        with wave.open(os.path.join(out_dir, f"smoke_{sr // 1000}k_{i:03d}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes(pcm.tobytes())
+        total += n / sr
+    return total
+
+
+def main_path(meta, sd, seed: int, card: str):
+    """Phase 5. Returns the kernel's launch count in the predict_dir run."""
+    from nisqa_tpu_torch import run_predict
+    from nisqa_tpu_torch.compat.checkpoint import load_model_from_tar
+    from nisqa_tpu_torch.data.pipeline import InferenceEngine, MsConfig, native_decode_available
+    from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
+
+    with tempfile.TemporaryDirectory(prefix="nisqa_smoke_") as tmp:
+        corpus, out_dir = os.path.join(tmp, "wavs"), os.path.join(tmp, "out")
+        os.makedirs(corpus)
+        os.makedirs(out_dir)
+        audio_s = write_corpus(corpus, seed)
+        tar = os.path.join(tmp, "nisqa_dim.tar")
+        args = {**meta["model_args"], **YAML_GEOMETRY, "model": "NISQA_DIM", "name": "NISQA_DIM"}
+        torch.save({"args": args, "model_state_dict": sd, "model_name": "NISQA_DIM"}, tar)
+        paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
+        print(f"host decode: {'native C++ loader' if native_decode_available() else 'Python decoder'}",
+              flush=True)
+
+        fused_dft_mel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rows = run_predict.main(["--mode", "predict_dir", "--pretrained_model", tar,
+                                 "--data_dir", corpus, "--output_dir", out_dir, "--bs", str(BATCH)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_dft_mel.LAUNCHES
+
+        with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
+            table = list(csv.DictReader(f))
+        pred_cols = ["mos_pred", "noi_pred", "dis_pred", "col_pred", "loud_pred"]
+        check(len(table) == len(paths) == 68 and len(rows) == 68,
+              f"NISQA_results.csv has {len(table)} rows for {len(paths)} files")
+        check(list(table[0]) == ["deg", *pred_cols, "model"], f"columns {list(table[0])}")
+        check([r["deg"] for r in table] == [os.path.basename(p) for p in paths], "row order")
+        y_cli = np.array([[float(r[c]) for c in pred_cols] for r in table])
+        check(bool(np.isfinite(y_cli).all()), "non-finite predictions in NISQA_results.csv")
+
+        model, ckpt_args = load_model_from_tar(tar, "cuda")
+        ms = MsConfig(ckpt_args)
+        plan = InferenceEngine(model, ms, "cuda", batch_size=BATCH).plan(paths)
+        print(f"predict_dir: {len(table)} files, {len(plan)} batches "
+              f"{[(g, len(c)) for g, c in plan]}, fused_dft_mel launches={launches}; "
+              f"{audio_s:.1f} audio-s in {wall:.3f} s wall (checkpoint load and first-call "
+              f"set-up included) = {audio_s / wall:.1f} audio-s/s on {card}", flush=True)
+        check(launches == len(plan), f"fused_dft_mel launched {launches}x for {len(plan)} batches")
+
+        y = {}
+        for name, dft_mel in (("kernel", fused_dft_mel), ("twin", dft_mel_reference)):
+            engine = InferenceEngine(model, ms, "cuda", batch_size=BATCH, precision="highest",
+                                     fe_precision="exact", dft_mel=dft_mel)
+            engine.predict_paths(paths)  # untimed: cuDNN set-up for float32 convolutions
+            t0 = time.perf_counter()
+            y[name] = engine.predict_paths(paths)
+            dt = time.perf_counter() - t0
+            print(f"warm pass precision=highest fe=exact front-end={name}: {audio_s / dt:.1f} "
+                  f"audio-s/s ({dt:.3f} s) on {card}", flush=True)
+        diff = float(np.abs(y["kernel"] - y["twin"]).max())
+        cli_vs_highest = float(np.abs(y_cli - y["kernel"]).max())
+        print(f"kernel vs twin front-end at 'highest': max_abs_diff={diff} bound={PASS_BOUND}; "
+              f"default-precision CLI vs 'highest': max_abs_diff={cli_vs_highest}", flush=True)
+        check(bool(np.isfinite(y["kernel"]).all()) and diff <= PASS_BOUND,
+              f"kernel and twin front-ends disagree by {diff}")
+    return launches
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of every generated input")
+    ap.add_argument("--reps", type=int, default=5, help="timed repetitions per kernel case")
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SmokeFailure("CUDA is not available: chip_smoke.py runs on a CUDA card only")
+    sys.path.insert(0, REPO)
+    from nisqa_tpu_torch.ops import _build
+
+    # 1. device
+    card = card_line()
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    print(card, flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    print(f"built {os.path.relpath(lib_path, REPO)} in {time.perf_counter() - t0:.2f} s", flush=True)
+    with open(lib_path[: -len(".so")] + ".log") as f:
+        print(f.read().strip(), flush=True)
+
+    # 3-5
+    results, main_row = kernel_vs_twin(opts.seed, opts.reps, card)
+    meta, sd = model_golden()
+    launches = main_path(meta, sd, opts.seed, card)
+    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+                      or m.startswith(("nisqa_tpu.model", "nisqa_tpu.data.pipeline",
+                                       "nisqa_tpu.compat.torch_ckpt", "nisqa_tpu.ops")))
+    check(not jax_mods, f"the port imported JAX code: {jax_mods[:10]}")
+    print("imports: no jax module loaded; pandas/yaml loaded: "
+          f"{[m for m in ('pandas', 'yaml') if m in sys.modules]}", flush=True)
+
+    record = {"kernels": [{
+        "name": "fused_dft_mel",
+        "route": "cuda",
+        "source": "nisqa_tpu_torch/csrc/dft_mel.cu",
+        "replaces": "nisqa_tpu/ops/pallas_mel.py:99",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in results),
+        "ms": main_row["kernel_ms"],
+        "plain_ms": main_row["twin_ms"],
+    }]}
+    print(card_line(), flush=True)
+    print(json.dumps(record), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                            "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,66 @@
+"""Batched front-end: audio buffer -> mel dB -> segments, on one device.
+
+Counterpart of ``nisqa_tpu/data/pipeline.py::_front_end`` (``mel_fn`` and
+``seg_fn``). The geometry and the host-computed constants are the JAX
+package's own (:func:`..pipeline.front_end_consts`), so the same buffers
+give the same mels:
+
+  * frame ``t`` is ``audio[b, t*hop + lpad : t*hop + lpad + win]`` with
+    ``lpad = (n_fft - win) // 2``: the analysis window is nonzero on only
+    ``win`` of the zero-padded ``n_fft`` samples, and the window, the PCM16
+    scale and the DFT terms are folded into ``w_re`` / ``w_im``;
+  * the DFT -> |.| -> mel step is one call of ``dft_mel`` (the fused CUDA
+    kernel on the card);
+  * 20*log10 with a per-file floor 80 dB under the peak of the VALID frames;
+  * segments of ``seg_length`` frames at ``seg_hop``, zeroed past ``n_wins``
+    (ceil when ``seg_hop > 1``, a recorded deliberate deviation that both
+    packages share, docs/PARITY_MAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.dft_mel import fused_dft_mel
+
+
+def frame_geometry(ms, sr: int, t_bucket: int):
+    """(hop, win, lpad, n_frames_max, buf_len) of a (sample rate, T bucket).
+
+    ``buf_len`` is the reflect-padded audio buffer length the host fills,
+    equal to the JAX package's (``pipeline.py:132-141``).
+    """
+    hop = int(sr * ms.hop_s)
+    win = int(sr * ms.win_s)
+    n_frames_max = ms.frames_for_bucket(t_bucket)
+    lpad = (ms.n_fft - win) // 2
+    r1 = (lpad + win - 1) // hop
+    return hop, win, lpad, n_frames_max, (n_frames_max + r1) * hop
+
+
+def mel_fn(ms, sr: int, t_bucket: int, consts: dict, audio, n_samples,
+           fast: bool = False, dft_mel=fused_dft_mel):
+    """(audio (B, buf_len) int16 or float32, n_samples (B,)) -> mel dB
+    (B, n_frames_max, n_mels) float32, top_db-clipped per file."""
+    hop, win, lpad, n_frames, _ = frame_geometry(ms, sr, t_bucket)
+    b = audio.shape[0]
+    # zero-copy hop-strided view, then one copy into contiguous float32 rows
+    frames = audio[:, lpad:].unfold(-1, win, hop)[:, :n_frames]
+    frames = frames.to(torch.float32).contiguous().view(b * n_frames, win)
+    mel = dft_mel(frames, consts["w_re"], consts["w_im"], consts["fb_t"], bf16=fast)
+    db = 20.0 * torch.log10(torch.clamp(mel.view(b, n_frames, -1), min=1e-4))
+    valid = torch.arange(n_frames, device=audio.device)[None, :] < (1 + n_samples // hop)[:, None]
+    mx = torch.where(valid[:, :, None], db, -torch.inf).amax(dim=(1, 2), keepdim=True)
+    return torch.maximum(db, mx - 80.0)
+
+
+def seg_fn(ms, sr: int, t_bucket: int, db, n_samples):
+    """mel dB (B, n_frames_max, M) -> (segs (B, T, M, S), n_wins (B,))."""
+    hop = int(sr * ms.hop_s)
+    s, seg_hop = ms.seg_length, ms.seg_hop
+    # (B, T, M, S) windows: frames t*seg_hop .. t*seg_hop + S - 1
+    segs = db.unfold(1, s, seg_hop)[:, :t_bucket]
+    full = 1 + n_samples // hop - (s - 1)
+    n_wins = -torch.div(-full, seg_hop, rounding_mode="floor") if seg_hop > 1 else full
+    t_mask = torch.arange(t_bucket, device=db.device)[None, :] < n_wins[:, None]
+    return torch.where(t_mask[:, :, None, None], segs, 0.0), n_wins

@@ -10,18 +10,22 @@ never prints its last line):
 
   1. device: requires CUDA; prints versions and the card's name and power
      limit (nvidia-smi);
-  2. build: compiles the CUDA kernel library from ``nisqa_tpu_torch/csrc``;
+  2. build: compiles the CUDA kernel library from ``nisqa_tpu_torch/csrc``
+     and counts the tensor-core (HGMMA) instructions in its SASS;
   3. kernel vs twin: ``fused_dft_mel`` against ``dft_mel_reference`` on the
-     card at the main path's shapes (48 kHz with N = 32 x 5,211 frame rows,
-     a ragged N, and 16 kHz with K = 2,049), both front-end modes, with
-     CUDA-event times of each;
+     card at the main path's shapes (48 kHz with N = 32 x 5,211 and
+     32 x 663 frame rows, the largest and smallest buckets; a ragged N of 43
+     that splits K across blocks; 16 kHz with K = 2,049; 44.1 kHz with an
+     882-sample span), both front-end modes, with CUDA-event times and
+     TFLOP/s of each and a bitwise repeat;
   4. model: the released NISQA_DIM weights (``tests/goldens/g2_dim.npz``)
      against their torch golden at "highest" precision;
   5. main path: ``python -m nisqa_tpu_torch.run_predict --mode predict_dir
      --bs 32`` (through its ``main``) over a seeded corpus of 64 48 kHz and
      4 16 kHz WAVs with a reference-format ``.tar`` of those weights; counts
-     the kernel's launches in that run, and reruns the corpus at "highest"
-     with the kernel and with the twin front-end.
+     the kernel's launches and constant preparations in that run, and times
+     warm passes at the default precision and at "highest", each with the
+     kernel and with the twin front-end.
 
 The last two lines are a JSON record of the kernel and
 ``{"ok": true, "device": {...}}``.
@@ -53,7 +57,9 @@ YAML_GEOMETRY = {
 BATCH = 32
 EXACT_BOUND, FAST_BOUND = 1e-5, 1e-4  # kernel vs twin, relative to max|twin|
 GOLDEN_BOUND = 2e-4                   # model vs torch golden, absolute
-PASS_BOUND = 1e-3                     # kernel vs twin front-end predictions
+PASS_BOUND = 1e-3                     # kernel vs twin front-end predictions at "highest"
+DEFAULT_PASS_BOUND = 1e-2             # the same at the default precision (TF32, bf16 DFT)
+WARM_REPS = 5                         # timed warm passes per engine
 
 
 class SmokeFailure(RuntimeError):
@@ -71,55 +77,83 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def event_ms(fn) -> float:
-    """Device time of one call of ``fn``, in ms, from CUDA events."""
+def event_ms(fn, iters: int = 1) -> float:
+    """Device time of one call of ``fn``, in ms, from CUDA events around
+    ``iters`` calls."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    fn()
+    for _ in range(iters):
+        fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b)
+    return a.elapsed_time(b) / iters
+
+
+def hgmma_count(lib_path: str) -> int:
+    """HGMMA (wgmma) instructions in the library's SASS, from cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    r = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass", lib_path],
+                       capture_output=True, text=True, check=True, timeout=300)
+    return sum("HGMMA" in line for line in r.stdout.splitlines())
 
 
 def kernel_vs_twin(seed: int, reps: int, card: str):
-    """Phase 3. Returns (rows of results, the main-path row)."""
+    """Phase 3. Returns (rows of results, the main shape's row by mode)."""
     from nisqa_tpu_torch.data.pipeline import MsConfig, front_end_consts, matmul_precision
-    from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
+    from nisqa_tpu_torch.ops.dft_mel import (dft_mel_reference, fused_dft_mel, plan_grid,
+                                             prepare_consts)
 
     ms = MsConfig(YAML_GEOMETRY)
     n_main = BATCH * ms.frames_for_bucket(ms.max_segments)  # 32 x 5,211 = 166,752
+    n_small = BATCH * ms.frames_for_bucket(ms.buckets()[0])  # 32 x 663 = 21,216
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(seed)
     results = []
-    for sr, n in ((48000, n_main), (48000, 43), (16000, n_main)):
+    # the main path's shapes, then 44.1 kHz: a 882-sample span whose rows the
+    # wrapper re-pads to the 16-byte stride the TMA wants
+    for sr, n in ((48000, n_main), (48000, n_small), (48000, 43), (16000, n_main), (44100, 4000)):
         c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(ms, sr, "i16").items()}
         span, k = c["w_re"].shape
         m = c["fb_t"].shape[1]
         frames = np.clip(np.round(rng.standard_normal((n, span)) * 3000), -32768, 32767)
         frames = torch.from_numpy(frames.astype(np.float32)).cuda()
-        args = (frames, c["w_re"], c["w_im"], c["fb_t"])
+        flop = 4.0 * n * span * k  # the DFT's re and im products, as counted for both
+        n_tiles = len(prepare_consts(c["w_re"], c["w_im"], c["fb_t"], True)["tiles"])
+        iters = 1 if n >= 10_000 else 20
         for mode, bf16, bound in (("exact", False, EXACT_BOUND), ("fast", True, FAST_BOUND)):
+            # fast mode takes bf16 frames, as mel_fn hands them over
+            args = (frames.to(torch.bfloat16) if bf16 else frames, c["w_re"], c["w_im"], c["fb_t"])
             with matmul_precision("highest"):  # the twin in float32, TF32 off
                 out = fused_dft_mel(*args, bf16=bf16)
+                again = fused_dft_mel(*args, bf16=bf16)
                 ref = dft_mel_reference(*args, bf16=bf16)
                 torch.cuda.synchronize()
                 abs_err = (out - ref).abs().max().item()
                 rel_err = abs_err / ref.abs().max().item()
-                del out, ref
+                repeat_equal = bool(torch.equal(out, again))
+                del out, again, ref
                 k_ms, t_ms = [], []
                 for _ in range(reps):  # alternate kernel and twin
-                    k_ms.append(event_ms(lambda: fused_dft_mel(*args, bf16=bf16)))
-                    t_ms.append(event_ms(lambda: dft_mel_reference(*args, bf16=bf16)))
+                    k_ms.append(event_ms(lambda: fused_dft_mel(*args, bf16=bf16), iters))
+                    t_ms.append(event_ms(lambda: dft_mel_reference(*args, bf16=bf16), iters))
+            kernel_ms, twin_ms = float(np.median(k_ms)), float(np.median(t_ms))
+            row_tiles, splits, _ = plan_grid(n, n_tiles, sms)
             row = {"sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
-                   "max_abs_err": abs_err, "rel_err": rel_err, "bound": bound,
-                   "kernel_ms": float(np.median(k_ms)), "twin_ms": float(np.median(t_ms))}
+                   "grid": [row_tiles, splits], "max_abs_err": abs_err, "rel_err": rel_err,
+                   "bound": bound, "repeat_bitwise_equal": repeat_equal,
+                   "kernel_ms": kernel_ms, "twin_ms": twin_ms,
+                   "kernel_tflops": flop / kernel_ms / 1e9, "twin_tflops": flop / twin_ms / 1e9}
             print("kernel_vs_twin " + json.dumps(row) + f" card: {card}", flush=True)
             check(math.isfinite(rel_err) and rel_err <= bound,
                   f"fused_dft_mel disagrees with its twin: {row}")
+            check(repeat_equal, f"two launches on the same input differ: {row}")
             results.append(row)
-        del frames, args, c
+            del args
+        del frames, c
         torch.cuda.empty_cache()
-    main_row = next(r for r in results if r["sr"] == 48000 and r["N"] == n_main and r["mode"] == "fast")
-    return results, main_row
+    main = {r["mode"]: r for r in results if r["sr"] == 48000 and r["N"] == n_main}
+    return results, main
 
 
 def model_golden():
@@ -182,13 +216,13 @@ def main_path(meta, sd, seed: int, card: str):
         print(f"host decode: {'native C++ loader' if native_decode_available() else 'Python decoder'}",
               flush=True)
 
-        fused_dft_mel.LAUNCHES = 0
+        fused_dft_mel.LAUNCHES = fused_dft_mel.PREPARATIONS = 0
         t0 = time.perf_counter()
         rows = run_predict.main(["--mode", "predict_dir", "--pretrained_model", tar,
                                  "--data_dir", corpus, "--output_dir", out_dir, "--bs", str(BATCH)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fused_dft_mel.LAUNCHES
+        launches, preparations = fused_dft_mel.LAUNCHES, fused_dft_mel.PREPARATIONS
 
         with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
             table = list(csv.DictReader(f))
@@ -204,27 +238,44 @@ def main_path(meta, sd, seed: int, card: str):
         ms = MsConfig(ckpt_args)
         plan = InferenceEngine(model, ms, "cuda", batch_size=BATCH).plan(paths)
         print(f"predict_dir: {len(table)} files, {len(plan)} batches "
-              f"{[(g, len(c)) for g, c in plan]}, fused_dft_mel launches={launches}; "
+              f"{[(g, len(c)) for g, c in plan]}, fused_dft_mel launches={launches}, "
+              f"constant preparations={preparations}; "
               f"{audio_s:.1f} audio-s in {wall:.3f} s wall (checkpoint load and first-call "
               f"set-up included) = {audio_s / wall:.1f} audio-s/s on {card}", flush=True)
         check(launches == len(plan), f"fused_dft_mel launched {launches}x for {len(plan)} batches")
+        groups = {(sr, kind) for (sr, _, kind), _ in plan}  # one front-end mode per engine
+        check(preparations == len(groups),
+              f"{preparations} constant preparations for {len(groups)} (sr, transport, mode) groups")
 
-        y = {}
-        for name, dft_mel in (("kernel", fused_dft_mel), ("twin", dft_mel_reference)):
-            engine = InferenceEngine(model, ms, "cuda", batch_size=BATCH, precision="highest",
-                                     fe_precision="exact", dft_mel=dft_mel)
-            engine.predict_paths(paths)  # untimed: cuDNN set-up for float32 convolutions
-            t0 = time.perf_counter()
-            y[name] = engine.predict_paths(paths)
-            dt = time.perf_counter() - t0
-            print(f"warm pass precision=highest fe=exact front-end={name}: {audio_s / dt:.1f} "
-                  f"audio-s/s ({dt:.3f} s) on {card}", flush=True)
-        diff = float(np.abs(y["kernel"] - y["twin"]).max())
-        cli_vs_highest = float(np.abs(y_cli - y["kernel"]).max())
-        print(f"kernel vs twin front-end at 'highest': max_abs_diff={diff} bound={PASS_BOUND}; "
-              f"default-precision CLI vs 'highest': max_abs_diff={cli_vs_highest}", flush=True)
-        check(bool(np.isfinite(y["kernel"]).all()) and diff <= PASS_BOUND,
-              f"kernel and twin front-ends disagree by {diff}")
+        engines = {
+            (precision, name): InferenceEngine(model, ms, "cuda", batch_size=BATCH,
+                                               precision=precision, fe_precision=fe,
+                                               dft_mel=dft_mel)
+            for precision, fe in (("default", "fast"), ("highest", "exact"))
+            for name, dft_mel in (("kernel", fused_dft_mel), ("twin", dft_mel_reference))
+        }
+        for engine in engines.values():
+            engine.predict_paths(paths)  # untimed: cuDNN set-up, constant preparation
+        y, secs = {}, {key: [] for key in engines}
+        for r in range(WARM_REPS):  # alternate the order: host noise hits both front-ends alike
+            for key in list(engines)[:: 1 if r % 2 == 0 else -1]:
+                t0 = time.perf_counter()
+                y[key] = engines[key].predict_paths(paths)  # ends in a device readback
+                secs[key].append(time.perf_counter() - t0)
+        for (precision, name), engine in engines.items():
+            dt = float(np.median(secs[precision, name]))
+            print(f"warm pass precision={precision} fe={engine.fe_precision} front-end={name}: "
+                  f"{audio_s / dt:.1f} audio-s/s (median {dt:.4f} s of "
+                  f"{[round(t, 4) for t in secs[precision, name]]}) on {card}", flush=True)
+        for precision, bound in (("default", DEFAULT_PASS_BOUND), ("highest", PASS_BOUND)):
+            got = y[precision, "kernel"]
+            diff = float(np.abs(got - y[precision, "twin"]).max())
+            print(f"kernel vs twin front-end at {precision!r}: max_abs_diff={diff} bound={bound}",
+                  flush=True)
+            check(bool(np.isfinite(got).all()) and diff <= bound,
+                  f"kernel and twin front-ends disagree by {diff} at {precision!r}")
+        print("default-precision CLI vs 'highest': max_abs_diff="
+              f"{float(np.abs(y_cli - y['highest', 'kernel']).max())}", flush=True)
     return launches
 
 
@@ -251,9 +302,12 @@ def main(argv=None):
     print(f"built {os.path.relpath(lib_path, REPO)} in {time.perf_counter() - t0:.2f} s", flush=True)
     with open(lib_path[: -len(".so")] + ".log") as f:
         print(f.read().strip(), flush=True)
+    n_hgmma = hgmma_count(lib_path)
+    print(f"SASS: {n_hgmma} HGMMA (wgmma) instructions", flush=True)
+    check(n_hgmma > 0, "no HGMMA instruction in the kernel library: the tensor cores are unused")
 
     # 3-5
-    results, main_row = kernel_vs_twin(opts.seed, opts.reps, card)
+    results, main = kernel_vs_twin(opts.seed, opts.reps, card)
     meta, sd = model_golden()
     launches = main_path(meta, sd, opts.seed, card)
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
@@ -270,8 +324,10 @@ def main(argv=None):
         "replaces": "nisqa_tpu/ops/pallas_mel.py:99",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in results),
-        "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["twin_ms"],
+        "ms": main["fast"]["kernel_ms"],
+        "plain_ms": main["fast"]["twin_ms"],
+        "exact_ms": main["exact"]["kernel_ms"],
+        "exact_plain_ms": main["exact"]["twin_ms"],
     }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)

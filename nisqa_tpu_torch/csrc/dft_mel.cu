@@ -1,198 +1,500 @@
-// Fused windowed-DFT magnitude -> mel projection, hand-written for Hopper
-// (sm_90a), FFMA in float32.
+// Fused windowed-DFT magnitude -> mel projection on Hopper's tensor cores
+// (sm_90a): TMA + mbarrier ring, warp-specialised wgmma, fused epilogue.
 //
 // Replaces the TPU kernel nisqa_tpu/ops/pallas_mel.py::fused_dft_mel
 // (body _mel_kernel). Same contract:
 //
 //   out[n, m] = sum_k |sum_s frames[n, s] * (w_re[s, k] + i * w_im[s, k])| * fb[k, m]
 //
-// frames (N, span), w_re / w_im (span, K), fb (K, M), out (N, M), all
-// contiguous float32. The analysis window, the 1/32768 PCM16 scale and the
-// DFT cos / -sin terms are folded into w_re / w_im by the host
-// (nisqa_tpu_torch/data/pipeline.py::front_end_consts).
+// The host lays the constants out for this kernel once per constant set
+// (nisqa_tpu_torch/ops/dft_mel.py::prepare_consts):
+//   * w (2*Kp, Sp): K-major and re/im interleaved, row 2j = w_re[:, j],
+//     row 2j+1 = w_im[:, j]; K padded to Kp (a multiple of 64 bins) and span
+//     to Sp (a multiple of 64) with zeros, which contribute exactly 0;
+//   * fast mode: w in bf16; exact mode: w_hi / w_lo in float32, the TF32
+//     split of w (hi = rna_tf32(w), lo = rna_tf32(w - hi));
+//   * fb (Kp, M) float32, zero rows for the padding;
+//   * tiles (T, 3) int32: (K tile, m_lo, m_hi) for every 64-bin K tile whose
+//     filterbank rows are nonzero somewhere, [m_lo, m_hi) their band range.
 //
-// What bounds it on an H100: at 48 kHz (span 960, K 1,792 kept bins, M 48)
-// one frame row costs 4 * span * K = 6.9 MFLOP of DFT against 3.8 KB of
-// frame read, so the kernel is compute-bound by a wide margin; w_re + w_im
-// are 13.8 MB and stay resident in the 50 MB L2. The (N, K) re / im / |.|
-// products are the only large intermediates, and they never leave the SM.
+// What bounds it on an H100: each block re-reads its frame rows once per K
+// tile, and every w tile is read once per row tile. At 48 kHz (span 960,
+// 1,792 kept bins, N 166,752) that is 17 GB (fast) and 51 GB (exact) of
+// L2 -> SM traffic against 1.15 TFLOP of bf16 (3.4 of TF32). A copy of the
+// main loop with the wgmmas taken out ran in about 70% (fast) and 63%
+// (exact) of the kernel's time, so that traffic bounds it first, and the
+// partial overlap of loads and wgmmas (each warpgroup waits for its chunk's
+// wgmmas before the next) second. Next levers: frames read by TMA
+// straight from the strided i16 audio buffer, cluster TMA multicast of w,
+// a persistent grid.
 //
-// Design (right and simple first; tensor cores, TMA and reading frames
-// straight from the strided audio buffer are later work):
-//   * one block owns TR = 64 frame rows and loops over ALL K tiles itself
-//     (the TPU's sequential k grid axis with a revisited output block has no
-//     GPU counterpart: blocks run in parallel, in no order);
-//   * for each K tile of TK = 64 bins, the span contraction runs in chunks
-//     of TS = 16 samples staged in shared memory (64 rows x 960 x 4 B would
-//     not fit in 227 KB), and each thread accumulates a 4 x 4 re / im
-//     micro-tile in registers;
-//   * the magnitude tile goes to shared memory, is multiplied by the matching
-//     fb tile and added into a (TR, M) mel accumulator in shared memory that
-//     lives for the whole K loop; every accumulator element has one owning
-//     thread, so there are no atomics and the result is deterministic;
-//   * ragged N, K and span edges are masked on load (zero frames / weights /
-//     filter rows contribute exactly zero), so no padding is needed;
-//   * fast mode (BF16 = true) rounds every frames and w operand to bf16 with
-//     __float2bfloat16_rn before the FFMA: bf16 x bf16 products are exact in
-//     float32, so this is "bf16 operands, f32 accumulation". Exact mode uses
-//     plain float32 FFMA (never TF32). The mel projection is float32 in both.
+// Design:
+//   * DFT as one GEMM, frames (N, span) x w^T, on wgmma m64n128: each block
+//     owns BM = 128 frame rows (two consumer warpgroups of 64) and loops over
+//     its K tiles; each K tile is 128 interleaved columns = 64 bins, so a
+//     thread's accumulator pairs (d[2i], d[2i+1]) are the re / im of one bin;
+//   * fast mode: bf16 x bf16 -> f32 (the twin's bf16 operands: products are
+//     exact in f32, only the summation order differs);
+//   * the tensor cores' float32 accumulation rounds more coarsely than IEEE
+//     (on an H100, exact mode was 6e-6 of max off when one accumulator
+//     ran over the whole span); so each span chunk's wgmmas start from zero
+//     and the chunk's partial is added into a second register accumulator
+//     with IEEE float32 adds;
+//   * exact mode: 3xTF32, d += a_hi*w_lo + a_lo*w_hi + a_hi*w_hi. The
+//     frames tile arrives in float32; each consumer warpgroup splits its own
+//     64 rows in shared memory (hi in place, lo beside it) with
+//     cvt.rna.tf32.f32 before its wgmmas. A single TF32 pass is 2e-4 off
+//     (relative to max) and is never used;
+//   * one producer warp streams (frames, w) span chunks of 128 bytes per row
+//     through a ring of STAGES shared-memory slots with TMA (128-byte
+//     swizzle, the wgmma descriptors' layout) and full / empty mbarriers;
+//   * epilogue per K tile, on the accumulators: |re + i im| in registers,
+//     then the mel step in float32 FFMA over the tile's band range
+//     [m_lo, m_hi) only (fb is zero elsewhere, so this is exact); a quad of
+//     lanes holding one row reduces with two xor shuffles in a fixed order,
+//     and one owner lane per (row, m) adds into a (BM, M) shared tile;
+//   * K tiles with an empty band are not in the tile list: skipped, DFT
+//     included;
+//   * small N: the grid is (row tiles, splits); split s takes a contiguous
+//     run of the tile list and writes its partial mel to scratch[s], and
+//     sum_splits_kernel adds the splits in order. No atomics anywhere: the
+//     output is the same bits run to run.
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 namespace {
 
-constexpr int TR = 64;          // frame rows per block
-constexpr int TK = 64;          // DFT bins per K tile
-constexpr int TS = 16;          // span samples per shared-memory chunk
-constexpr int RM = 4;           // rows per thread
-constexpr int KM = 4;           // bins per thread
-constexpr int THREADS = (TR / RM) * (TK / KM);  // 256
-constexpr int FS_LD = TR + 4;   // transposed frames chunk, padded against bank conflicts
-constexpr int MAG_LD = TK + 1;  // magnitude tile, padded against bank conflicts
-constexpr size_t kMaxSmem = 232448;  // H100: 227 KB of dynamic shared memory per block
+constexpr int BM = 128;                    // frame rows per block
+constexpr int BN = 128;                    // interleaved re / im columns per K tile
+constexpr int BINS = BN / 2;               // DFT bins per K tile
+constexpr int CONSUMERS = 2;               // consumer warpgroups, 64 rows each
+constexpr int PRODUCER_WARP = CONSUMERS * 4;
+constexpr int THREADS = CONSUMERS * 128 + 32;
+constexpr int ROW_BYTES = 128;             // one 128-byte swizzle row per tile row
+constexpr int A_BYTES = BM * ROW_BYTES;    // 16 KB
+constexpr int B_BYTES = BN * ROW_BYTES;    // 16 KB
+constexpr int WG_A_BYTES = 64 * ROW_BYTES; // one consumer warpgroup's rows
+constexpr int MAX_M = 64;
+constexpr size_t kMaxSmem = 232448;        // H100: 227 KB of dynamic shared memory per block
 
+// Fast mode: bf16, 64 span samples per chunk; slot = A | B.
+// Exact mode: float32 (TF32), 32 samples per chunk; slot = A (hi in place) | A lo | B hi | B lo.
+template <bool EXACT>
+struct Mode {
+  static constexpr int BK = EXACT ? 32 : 64;
+  static constexpr int STAGES = EXACT ? 3 : 6;
+  static constexpr int SLOT_BYTES = EXACT ? 2 * A_BYTES + 2 * B_BYTES : A_BYTES + B_BYTES;
+  static constexpr int TX_BYTES = EXACT ? A_BYTES + 2 * B_BYTES : A_BYTES + B_BYTES;
+  static constexpr int K_STEPS = ROW_BYTES / 32;  // wgmma k16 (bf16) or k8 (tf32): 32 bytes each
+};
+
+template <bool EXACT>
 size_t smem_bytes(int m) {
-  return sizeof(float) * (size_t(TS) * FS_LD + 2 * size_t(TS) * TK + size_t(TR) * MAG_LD +
-                          size_t(TK) * m + size_t(TR) * m);
+  return 1024 + size_t(Mode<EXACT>::STAGES) * Mode<EXACT>::SLOT_BYTES + size_t(BM) * m * 4 +
+         2 * Mode<EXACT>::STAGES * 8;
 }
 
-template <bool BF16>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
+// ---- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// wgmma shared-memory descriptor: K-major tile of 128-byte rows with the
+// 128-byte swizzle (8-row atoms of 1,024 bytes; LBO unused for this layout).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins the accumulators in place around the asynchronous wgmmas, so the
+// compiler moves no read or write of them across a fence or a wait.
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WGMMA_D_LIST                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define D8(o)                                                                                 \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), \
+      "+f"(d[o + 6]), "+f"(d[o + 7])
+#define D64 D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+
+// d (64 x 128 f32, 64 registers a thread) += A (64 x 16 bf16) * B (128 x 16 bf16)^T
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D_LIST
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : D64
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128 f32) += A (64 x 8 tf32) * B (128 x 8 tf32)^T
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WGMMA_D_LIST
+      ", %64, %65, p, 1, 1;\n"
+      "}\n"
+      : D64
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float rna_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// ---- kernels ----------------------------------------------------------------
+
+template <bool EXACT>
+__global__ void __launch_bounds__(THREADS, 1)
+dft_mel_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+               const __grid_constant__ CUtensorMap map_w_lo, const int* __restrict__ tiles,
+               int n_tiles, int tiles_per_split, const float* __restrict__ fb,
+               float* __restrict__ out, int64_t n, int span, int m) {
+  using C = Mode<EXACT>;
+  extern __shared__ uint8_t smem_raw[];
+  // 1,024-byte alignment for the swizzled tiles
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* slots = smem;
+  float* mel = reinterpret_cast<float*>(slots + C::STAGES * C::SLOT_BYTES);  // [BM][m]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(mel + BM * m);                // full | empty
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + C::STAGES);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = int(blockIdx.x) * BM;
+  const int t_begin = int(blockIdx.y) * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int n_chunks = (span + C::BK - 1) / C::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);                  // the producer's expect_tx arrival
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  for (int e = threadIdx.x; e < BM * m; e += THREADS) mel[e] = 0.f;
+  __syncthreads();
 
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-dft_mel_kernel(const float* __restrict__ frames, const float* __restrict__ w_re,
-               const float* __restrict__ w_im, const float* __restrict__ fb,
-               float* __restrict__ out, int64_t n, int span, int k_total, int m) {
-  extern __shared__ __align__(16) float smem[];
-  float* fs = smem;                // [TS][FS_LD]  frames chunk, transposed
-  float* wrs = fs + TS * FS_LD;    // [TS][TK]
-  float* wis = wrs + TS * TK;      // [TS][TK]
-  float* mag = wis + TS * TK;      // [TR][MAG_LD]
-  float* fbs = mag + TR * MAG_LD;  // [TK][m]
-  float* acc = fbs + TK * m;       // [TR][m]     mel accumulator
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (TK / KM);  // bin group: bins tx*KM .. +KM-1 of the tile
-  const int ty = tid / (TK / KM);  // row group: rows ty*RM .. +RM-1 of the tile
-  const int64_t row0 = int64_t(blockIdx.x) * TR;
-
-  for (int e = tid; e < TR * m; e += THREADS) acc[e] = 0.f;
-
-  for (int k0 = 0; k0 < k_total; k0 += TK) {
-    float re[RM][KM], im[RM][KM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < KM; ++j) re[i][j] = im[i][j] = 0.f;
-
-    for (int s0 = 0; s0 < span; s0 += TS) {
-      // stage the (TR, TS) frames chunk transposed: consecutive threads read
-      // consecutive samples of one row (coalesced)
-      for (int e = tid; e < TR * TS; e += THREADS) {
-        const int r = e / TS, s = e % TS;
-        const int64_t row = row0 + r;
-        const int col = s0 + s;
-        const float v = (row < n && col < span) ? frames[row * span + col] : 0.f;
-        fs[s * FS_LD + r] = operand<BF16>(v);
-      }
-      // stage the (TS, TK) w_re / w_im chunks: consecutive threads read
-      // consecutive bins of one sample row (coalesced, L2-resident)
-      for (int e = tid; e < TS * TK; e += THREADS) {
-        const int s = e / TK, k = e % TK;
-        const int srow = s0 + s, kcol = k0 + k;
-        const bool ok = srow < span && kcol < k_total;
-        const int64_t g = int64_t(srow) * k_total + kcol;
-        wrs[e] = operand<BF16>(ok ? w_re[g] : 0.f);
-        wis[e] = operand<BF16>(ok ? w_im[g] : 0.f);
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int s = 0; s < TS; ++s) {
-        const float4 a = *reinterpret_cast<const float4*>(&fs[s * FS_LD + ty * RM]);
-        const float4 br = *reinterpret_cast<const float4*>(&wrs[s * TK + tx * KM]);
-        const float4 bi = *reinterpret_cast<const float4*>(&wis[s * TK + tx * KM]);
-        const float av[RM] = {a.x, a.y, a.z, a.w};
-        const float brv[KM] = {br.x, br.y, br.z, br.w};
-        const float biv[KM] = {bi.x, bi.y, bi.z, bi.w};
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < KM; ++j) {
-            re[i][j] = fmaf(av[i], brv[j], re[i][j]);
-            im[i][j] = fmaf(av[i], biv[j], im[i][j]);
+  if (warp == PRODUCER_WARP) {
+    // ---- producer: one lane keeps the TMA ring full --------------------------
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        const int col0 = tiles[3 * t] * BN;
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t slot = smem_u32(slots + stage * C::SLOT_BYTES);
+          mbar_expect_tx(full, C::TX_BYTES);
+          tma_load_2d(slot, &map_a, c * C::BK, row0, full);
+          if constexpr (EXACT) {
+            tma_load_2d(slot + 2 * A_BYTES, &map_w, c * C::BK, col0, full);
+            tma_load_2d(slot + 2 * A_BYTES + B_BYTES, &map_w_lo, c * C::BK, col0, full);
+          } else {
+            tma_load_2d(slot + A_BYTES, &map_w, c * C::BK, col0, full);
           }
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-      __syncthreads();
     }
+  } else {
+    // ---- consumers: warpgroup wg owns block rows wg*64 .. wg*64+63 -----------
+    const int wg = warp / 4;
+    const int tid_wg = threadIdx.x % 128;
+    const int q = lane % 4;                                 // bin 4j + q of each n8 column group
+    const int r_lo = wg * 64 + (warp % 4) * 16 + lane / 4;  // block rows r_lo and r_lo + 8
+    float d[64];    // wgmma accumulators: one span chunk's partial DFT
+    float acc[64];  // the K tile's DFT, summed over chunks in IEEE float32
+    int stage = 0;
+    uint32_t phase = 0;
 
-    // |re + i im| for this K tile; masked bins are exactly 0
+    for (int t = t_begin; t < t_end; ++t) {
+      const int kt = tiles[3 * t], m_lo = tiles[3 * t + 1], m_hi = tiles[3 * t + 2];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+      for (int c = 0; c < n_chunks; ++c) {
 #pragma unroll
-      for (int j = 0; j < KM; ++j)
-        mag[(ty * RM + i) * MAG_LD + tx * KM + j] =
-            sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
-    for (int e = tid; e < TK * m; e += THREADS) {
-      const int kcol = k0 + e / m;
-      fbs[e] = kcol < k_total ? fb[int64_t(kcol) * m + e % m] : 0.f;
-    }
-    __syncthreads();
+        for (int i = 0; i < 64; ++i) d[i] = 0.f;
+        fence_acc(d);
+        mbar_wait(full0 + 8 * stage, phase);
+        uint8_t* slot = slots + stage * C::SLOT_BYTES;
+        const uint32_t a = smem_u32(slot + wg * WG_A_BYTES);
+        if constexpr (EXACT) {
+          // split this warpgroup's float32 rows: hi in place, lo beside them
+          // (elementwise, so the swizzled layout carries over)
+          float4* hi4 = reinterpret_cast<float4*>(slot + wg * WG_A_BYTES);
+          float4* lo4 = reinterpret_cast<float4*>(slot + A_BYTES + wg * WG_A_BYTES);
+#pragma unroll
+          for (int i = 0; i < WG_A_BYTES / 16 / 128; ++i) {
+            const int e = tid_wg + i * 128;
+            const float4 v = hi4[e];
+            const float4 h = make_float4(rna_tf32(v.x), rna_tf32(v.y), rna_tf32(v.z), rna_tf32(v.w));
+            hi4[e] = h;
+            lo4[e] = make_float4(rna_tf32(v.x - h.x), rna_tf32(v.y - h.y), rna_tf32(v.z - h.z),
+                                 rna_tf32(v.w - h.w));
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          named_barrier(1 + wg, 128);
+          const uint32_t a_lo = a + A_BYTES;
+          const uint32_t w_hi = smem_u32(slot + 2 * A_BYTES), w_lo = w_hi + B_BYTES;
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < C::K_STEPS; ++k) {
+            const uint64_t step = uint64_t(k * 32 >> 4);
+            wgmma_tf32(d, smem_desc(a) + step, smem_desc(w_lo) + step);
+            wgmma_tf32(d, smem_desc(a_lo) + step, smem_desc(w_hi) + step);
+            wgmma_tf32(d, smem_desc(a) + step, smem_desc(w_hi) + step);
+          }
+        } else {
+          const uint32_t w = smem_u32(slot + A_BYTES);
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < C::K_STEPS; ++k) {
+            const uint64_t step = uint64_t(k * 32 >> 4);
+            wgmma_bf16(d, smem_desc(a) + step, smem_desc(w) + step);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(d);
+        if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += d[i];
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
 
-    // mel += mag @ fb_tile; each accumulator element has one owner thread
-    for (int e = tid; e < TR * m; e += THREADS) {
-      const int r = e / m, mm = e % m;
-      float sum = acc[e];
-      for (int k = 0; k < TK; ++k) sum = fmaf(mag[r * MAG_LD + k], fbs[k * m + mm], sum);
-      acc[e] = sum;
+      // |re + i im| of rows r_lo (h = 0) and r_lo + 8 (h = 1), bins 4j + q
+      float mag[2][16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float re = acc[4 * j + 2 * h], im = acc[4 * j + 2 * h + 1];
+          mag[h][j] = sqrtf(re * re + im * im);
+        }
+      // mel[r, mm] += sum_bins mag[r, bin] * fb[bin, mm] over the tile's band
+      const float* fbq = fb + (int64_t(kt) * BINS + q) * m;
+      for (int mm = m_lo; mm < m_hi; ++mm) {
+        float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float f = __ldg(fbq + 4 * j * m + mm);
+          p0 = fmaf(mag[0][j], f, p0);
+          p1 = fmaf(mag[1][j], f, p1);
+        }
+        p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+        p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+        p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+        p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+        if (q == (mm & 3)) {
+          mel[r_lo * m + mm] += p0;
+          mel[(r_lo + 8) * m + mm] += p1;
+        }
+      }
     }
-    __syncthreads();
-  }
 
-  for (int e = tid; e < TR * m; e += THREADS) {
-    const int64_t row = row0 + e / m;
-    if (row < n) out[row * m + e % m] = acc[e];
+    named_barrier(1 + wg, 128);
+    float* dst = out + int64_t(blockIdx.y) * n * m;
+    for (int e = tid_wg; e < 64 * m; e += 128) {
+      const int64_t row = row0 + wg * 64 + e / m;
+      if (row < n) dst[row * m + e % m] = mel[wg * 64 * m + e];
+    }
   }
+}
+
+// out[i] = scratch[0][i] + scratch[1][i] + ... in split order (deterministic)
+__global__ void sum_splits_kernel(const float* __restrict__ scratch, float* __restrict__ out,
+                                  int64_t count, int splits) {
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += int64_t(gridDim.x) * blockDim.x) {
+    float s = scratch[i];
+    for (int p = 1; p < splits; ++p) s += scratch[p * count + i];
+    out[i] = s;
+  }
+}
+
+// ---- host side --------------------------------------------------------------
+
+constexpr int kErrNoEncoder = -1;  // cuTensorMapEncodeTiled not found in libcuda
+constexpr int kErrEncode = -2;     // cuTensorMapEncodeTiled refused a map
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda.so.1 (the copy the process
+// has loaded, else loaded here; no -lcuda at build time).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// 2-D row-major (rows, cols) tensor with a row stride of `ld` elements, read
+// in (box_rows, box_cols) tiles with the 128-byte swizzle; out-of-bounds
+// elements read as zero.
+int make_map(CUtensorMap* map, const void* ptr, bool bf16, uint64_t rows, uint64_t cols,
+             uint64_t ld, uint32_t box_rows, uint32_t box_cols) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return kErrNoEncoder;
+  const uint64_t elem = bf16 ? 2 : 4;
+  cuuint64_t dims[2] = {cols, rows};
+  cuuint64_t strides[1] = {ld * elem};
+  cuuint32_t box[2] = {box_cols, box_rows};
+  cuuint32_t elem_strides[2] = {1, 1};
+  CUresult r = encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                      2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <bool EXACT>
+int launch(const void* frames, int64_t frames_ld, const void* w, const void* w_lo, int w_ld,
+           const int* tiles, int n_tiles, int tiles_per_split, int splits, const void* fb,
+           void* out, void* scratch, int64_t n, int span, int k_pad, int m,
+           cudaStream_t stream) {
+  using C = Mode<EXACT>;
+  const size_t smem = smem_bytes<EXACT>(m);
+  const int64_t row_tiles = (n + BM - 1) / BM;
+  if (smem > kMaxSmem || row_tiles > 0x7fffffff || splits > 65535 || n > 0x7fffffff)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_w, map_w_lo;
+  int err = make_map(&map_a, frames, !EXACT, uint64_t(n), uint64_t(span), uint64_t(frames_ld), BM,
+                     C::BK);
+  if (!err) err = make_map(&map_w, w, !EXACT, 2 * uint64_t(k_pad), uint64_t(w_ld), uint64_t(w_ld),
+                           BN, C::BK);
+  if (!err)
+    err = make_map(&map_w_lo, EXACT ? w_lo : w, !EXACT, 2 * uint64_t(k_pad), uint64_t(w_ld),
+                   uint64_t(w_ld), BN, C::BK);
+  if (err) return err;
+
+  cudaError_t e = cudaFuncSetAttribute(dft_mel_kernel<EXACT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  float* dst = static_cast<float*>(splits > 1 ? scratch : out);
+  dft_mel_kernel<EXACT><<<dim3(unsigned(row_tiles), unsigned(splits)), THREADS, smem, stream>>>(
+      map_a, map_w, map_w_lo, tiles, n_tiles, tiles_per_split, static_cast<const float*>(fb), dst,
+      n, span, m);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return int(e);
+  const int64_t count = n * m;
+  const int64_t blocks = (count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096;
+  sum_splits_kernel<<<unsigned(blocks), 256, 0, stream>>>(dst, static_cast<float*>(out), count,
+                                                         splits);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` without synchronising. Returns a
-// cudaError_t code (0 = launched).
-int nisqa_dft_mel(const void* frames, const void* w_re, const void* w_im, const void* fb,
-                  void* out, int64_t n, int span, int k_total, int m, int bf16,
-                  void* stream) {
-  if (n <= 0 || span <= 0 || k_total <= 0 || m <= 0) return int(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(m);
-  if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
-  const int64_t blocks = (n + TR - 1) / TR;
-  if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
-
-  void (*kernel)(const float*, const float*, const float*, const float*, float*, int64_t,
-                 int, int, int) = bf16 ? dft_mel_kernel<true> : dft_mel_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  kernel<<<dim3(unsigned(blocks)), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(frames), static_cast<const float*>(w_re),
-      static_cast<const float*>(w_im), static_cast<const float*>(fb),
-      static_cast<float*>(out), n, span, k_total, m);
-  return int(cudaGetLastError());
+// Launches the kernel (and, for splits > 1, the split sum) on `stream`
+// without synchronising. frames: (n, span) with row stride frames_ld, bf16
+// in fast mode and float32 in exact mode; w / w_lo: (2 * k_pad, w_ld); fb:
+// (k_pad, m) float32; tiles: (n_tiles, 3) int32; out: (n, m) float32;
+// scratch: (splits, n, m) float32 when splits > 1. Returns 0, a
+// cudaError_t code, or a negative code of this library
+// (nisqa_cuda_error_string names each).
+int nisqa_dft_mel(const void* frames, int64_t frames_ld, const void* w, const void* w_lo,
+                  int w_ld, const void* tiles, int n_tiles, int tiles_per_split, int splits,
+                  const void* fb, void* out, void* scratch, int64_t n, int span, int k_pad, int m,
+                  int exact, void* stream) {
+  if (n <= 0 || span <= 0 || span > w_ld || k_pad <= 0 || k_pad % BINS || m <= 0 || m > MAX_M ||
+      n_tiles < 0 || splits < 1 || (splits > 1 && !scratch) || (exact && !w_lo))
+    return int(cudaErrorInvalidValue);
+  const int* t = static_cast<const int*>(tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return exact ? launch<true>(frames, frames_ld, w, w_lo, w_ld, t, n_tiles, tiles_per_split,
+                              splits, fb, out, scratch, n, span, k_pad, m, s)
+               : launch<false>(frames, frames_ld, w, w_lo, w_ld, t, n_tiles, tiles_per_split,
+                               splits, fb, out, scratch, n, span, k_pad, m, s);
 }
 
 const char* nisqa_cuda_error_string(int code) {
+  if (code == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+  if (code == kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map (alignment?)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

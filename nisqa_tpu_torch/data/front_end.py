@@ -44,9 +44,12 @@ def mel_fn(ms, sr: int, t_bucket: int, consts: dict, audio, n_samples,
     (B, n_frames_max, n_mels) float32, top_db-clipped per file."""
     hop, win, lpad, n_frames, _ = frame_geometry(ms, sr, t_bucket)
     b = audio.shape[0]
-    # zero-copy hop-strided view, then one copy into contiguous float32 rows
+    # zero-copy hop-strided view, then one copy into contiguous rows: float32,
+    # or bf16 in fast mode (the DFT's operand rounding, done once here; i16 and
+    # float32 samples round to the same bf16 values as through float32)
     frames = audio[:, lpad:].unfold(-1, win, hop)[:, :n_frames]
-    frames = frames.to(torch.float32).contiguous().view(b * n_frames, win)
+    frames = frames.to(torch.bfloat16 if fast else torch.float32)
+    frames = frames.contiguous().view(b * n_frames, win)
     mel = dft_mel(frames, consts["w_re"], consts["w_im"], consts["fb_t"], bf16=fast)
     db = 20.0 * torch.log10(torch.clamp(mel.view(b, n_frames, -1), min=1e-4))
     valid = torch.arange(n_frames, device=audio.device)[None, :] < (1 + n_samples // hop)[:, None]

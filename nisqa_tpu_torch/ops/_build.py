@@ -70,9 +70,12 @@ def build() -> str:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with typed entry points."""
     lib = ctypes.CDLL(build())
-    lib.nisqa_dft_mel.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.nisqa_dft_mel.argtypes = [
+        ptr, i64, ptr, ptr, i32,            # frames, frames_ld, w, w_lo, w_ld
+        ptr, i32, i32, i32,                 # tiles, n_tiles, tiles_per_split, splits
+        ptr, ptr, ptr,                      # fb, out, scratch
+        i64, i32, i32, i32, i32, ptr,       # n, span, k_pad, m, exact, stream
     ]
     lib.nisqa_dft_mel.restype = ctypes.c_int
     lib.nisqa_cuda_error_string.argtypes = [ctypes.c_int]

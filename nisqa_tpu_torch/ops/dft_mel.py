@@ -12,12 +12,26 @@ raises.
 
 ``bf16=True`` is the fast front-end: frames and DFT weights are rounded to
 bf16, products and sums stay float32. The twin rounds the same operands the
-same way, so kernel and twin differ only in summation order.
+same way, so kernel and twin differ only in summation order. Exact mode
+runs the DFT as 3xTF32 on the tensor cores (``tf32_split``), the
+counterpart of the TPU kernel's multi-pass ``Precision.HIGHEST``.
+
+The kernel reads its constants in its own layout, made by
+``prepare_consts`` once per constant set (cached on the tensors' identity
+and counted in ``fused_dft_mel.PREPARATIONS``), and splits the K loop
+across blocks for small N (``plan_grid``).
 """
 
 from __future__ import annotations
 
+import weakref
+
 import torch
+
+ROWS_PER_BLOCK = 128    # frame rows per block (csrc/dft_mel.cu BM)
+BINS_PER_TILE = 64      # DFT bins per K tile (csrc/dft_mel.cu BINS)
+SPAN_ALIGN = 64         # w's span padding: one bf16 chunk of 128 bytes
+MAX_MELS = 64           # largest M the kernel's shared mel tile holds
 
 
 def dft_mel_reference(frames, w_re, w_im, fb, bf16: bool = False):
@@ -27,10 +41,87 @@ def dft_mel_reference(frames, w_re, w_im, fb, bf16: bool = False):
     return torch.sqrt((frames @ w_re) ** 2 + (frames @ w_im) ** 2) @ fb
 
 
-def _check(frames, w_re, w_im, fb):
+def round_tf32(x):
+    """float32 -> float32 rounded to TF32 (10 mantissa bits), nearest with
+    ties away from zero: ``cvt.rna.tf32.f32`` in integer bit operations."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """x -> (hi, lo), both TF32 values: hi = rna(x), lo = rna(x - hi).
+    hi*hi' + hi*lo' + lo*hi' is the 3xTF32 product of two such splits."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def band_tiles(fb):
+    """fb (Kp, M), Kp a multiple of ``BINS_PER_TILE`` -> int32 (T, 3) rows
+    (K tile, m_lo, m_hi): the K tiles whose filterbank rows are nonzero
+    somewhere, with the half-open mel band [m_lo, m_hi) they touch."""
+    kp, m = fb.shape
+    touched = (fb != 0).view(kp // BINS_PER_TILE, BINS_PER_TILE, m).any(dim=1).cpu()
+    rows = []
+    for t, cols in enumerate(touched):
+        nz = torch.nonzero(cols).flatten()
+        if len(nz):
+            rows.append((t, int(nz[0]), int(nz[-1]) + 1))
+    return torch.tensor(rows, dtype=torch.int32).view(-1, 3)
+
+
+def prepare_consts(w_re, w_im, fb, bf16: bool):
+    """The kernel's layout of the constants, in plain PyTorch.
+
+    * ``w`` (2*Kp, Sp): K-major (one row per output column, contiguous over
+      span), re / im interleaved (row 2j = w_re[:, j], row 2j+1 = w_im[:, j]),
+      K padded to Kp (a multiple of 64 bins) and span to Sp (a multiple of
+      64) with zeros: bf16 in fast mode, the TF32 ``hi`` in exact mode, with
+      ``w_lo`` beside it;
+    * ``fb`` (Kp, M) float32 with zero rows for the padded bins;
+    * ``tiles`` (T, 3) int32 on the device, from :func:`band_tiles`.
+
+    Padded bins have zero weights (|0| = 0) and zero filter rows, and skipped
+    tiles and bands multiply finite magnitudes by fb's zeros: all exact.
+    """
+    span, k = w_re.shape
+    m = fb.shape[1]
+    kp = -(-k // BINS_PER_TILE) * BINS_PER_TILE
+    sp = -(-span // SPAN_ALIGN) * SPAN_ALIGN
+    w = torch.zeros((kp, 2, sp), dtype=torch.float32, device=w_re.device)
+    w[:k, 0, :span] = w_re.t()
+    w[:k, 1, :span] = w_im.t()
+    w = w.view(2 * kp, sp)
+    fb_p = torch.zeros((kp, m), dtype=torch.float32, device=fb.device)
+    fb_p[:k] = fb
+    out = {"fb": fb_p, "tiles": band_tiles(fb_p).to(fb.device), "k_pad": kp}
+    if bf16:
+        out["w"] = w.to(torch.bfloat16)
+    else:
+        out["w"], out["w_lo"] = tf32_split(w)
+    return out
+
+
+def plan_grid(n: int, n_tiles: int, sms: int):
+    """(row tiles, splits, tiles per split) of a launch over ``n`` frame
+    rows and ``n_tiles`` active K tiles. Row tiles alone fill the card from
+    ``sms`` tiles up; below that the K tiles are split across
+    ``ceil(sms / row tiles)`` blocks per row tile (at most one tile each),
+    in contiguous runs, and the splits are summed in order after."""
+    row_tiles = -(-n // ROWS_PER_BLOCK)
+    splits = 1 if row_tiles >= sms or n_tiles <= 1 else min(n_tiles, -(-sms // row_tiles))
+    per = -(-n_tiles // splits) if n_tiles else 0
+    if per:
+        splits = -(-n_tiles // per)  # no empty split
+    return row_tiles, splits, per
+
+
+def _check(frames, w_re, w_im, fb, bf16):
     ts = (frames, w_re, w_im, fb)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"fused_dft_mel takes float32 tensors, got {[t.dtype for t in ts]}")
+    frame_types = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if frames.dtype not in frame_types or any(t.dtype != torch.float32 for t in ts[1:]):
+        raise TypeError(
+            "fused_dft_mel takes float32 tensors (frames may be bfloat16 with bf16=True), "
+            f"got {[t.dtype for t in ts]}")
     if any(t.dim() != 2 for t in ts):
         raise ValueError(f"fused_dft_mel takes 2-D tensors, got {[tuple(t.shape) for t in ts]}")
     n, span = frames.shape
@@ -46,39 +137,81 @@ def _check(frames, w_re, w_im, fb):
         raise ValueError("fused_dft_mel takes contiguous tensors")
 
 
+_PREPARED = {}  # (id(w_re), id(w_im), id(fb), bf16) -> (weak refs, prepared constants)
+
+
+def _kernel_consts(w_re, w_im, fb, bf16: bool):
+    """``prepare_consts`` once per constant tensors and mode. The entry
+    goes when ``w_re`` is freed; the constants are read-only by contract."""
+    src = (w_re, w_im, fb)
+    key = (*map(id, src), bool(bf16))
+    hit = _PREPARED.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], src)):
+        return hit[1]
+    kc = prepare_consts(w_re, w_im, fb, bf16)
+    fused_dft_mel.PREPARATIONS += 1
+    refs = (weakref.ref(w_re, lambda _, k=key: _PREPARED.pop(k, None)),
+            weakref.ref(w_im), weakref.ref(fb))
+    _PREPARED[key] = (refs, kc)
+    return kc
+
+
 def fused_dft_mel(frames, w_re, w_im, fb, bf16: bool = False):
     """frames (N, span), w_re / w_im (span, K), fb (K, M), float32 -> (N, M).
+
+    With ``bf16=True`` frames may also come as bfloat16 (the front-end's
+    rounding, done once where the frames are made).
 
     On a CUDA device this launches the kernel on the current stream, does
     not synchronise, and counts the launch in ``fused_dft_mel.LAUNCHES``.
     On the CPU it computes ``dft_mel_reference`` and counts nothing.
     """
-    _check(frames, w_re, w_im, fb)
+    _check(frames, w_re, w_im, fb, bf16)
     if frames.device.type == "cpu":
         return dft_mel_reference(frames, w_re, w_im, fb, bf16)
     if frames.device.type != "cuda":
         raise ValueError(f"fused_dft_mel runs on cuda or cpu tensors, got {frames.device}")
+    n, span = frames.shape
+    k, m = fb.shape
+    if m > MAX_MELS:
+        raise ValueError(f"fused_dft_mel's kernel takes M <= {MAX_MELS} mel bands, got {m}")
 
     from ._build import load_library
 
     lib = load_library()
-    n, span = frames.shape
-    k, m = fb.shape
-    out = torch.empty((n, m), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
+        kc = _kernel_consts(w_re, w_im, fb, bf16)
+        frames = frames.to(torch.bfloat16 if bf16 else torch.float32)
+        ld = span
+        if (span * frames.element_size()) % 16 or frames.data_ptr() % 16:
+            # TMA wants 16-byte aligned rows: copy into a zero-padded buffer
+            ld = -(-span * frames.element_size() // 16) * 16 // frames.element_size()
+            padded = torch.zeros((n, ld), dtype=frames.dtype, device=frames.device)
+            padded[:, :span] = frames
+            frames = padded
+        n_tiles = kc["tiles"].shape[0]
+        sms = torch.cuda.get_device_properties(frames.device).multi_processor_count
+        _, splits, per = plan_grid(n, n_tiles, sms)
+        out = torch.empty((n, m), dtype=torch.float32, device=frames.device)
+        scratch = (torch.empty((splits, n, m), dtype=torch.float32, device=frames.device)
+                   if splits > 1 else None)
+        w_lo = kc.get("w_lo")
         code = lib.nisqa_dft_mel(
-            frames.data_ptr(), w_re.data_ptr(), w_im.data_ptr(), fb.data_ptr(),
-            out.data_ptr(), n, span, k, m, int(bool(bf16)),
+            frames.data_ptr(), ld, kc["w"].data_ptr(), w_lo.data_ptr() if w_lo is not None else None,
+            kc["w"].shape[1], kc["tiles"].data_ptr(), n_tiles, per, splits, kc["fb"].data_ptr(),
+            out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            n, span, kc["k_pad"], m, int(not bf16),
             torch.cuda.current_stream(frames.device).cuda_stream,
         )
     if code != 0:
         msg = lib.nisqa_cuda_error_string(code).decode()
         raise RuntimeError(
-            f"dft_mel kernel launch failed: CUDA error {code} ({msg}) for "
-            f"N={n} span={span} K={k} M={m} bf16={bool(bf16)}"
+            f"dft_mel kernel launch failed: error {code} ({msg}) for "
+            f"N={n} span={span} K={k} M={m} bf16={bool(bf16)} splits={splits}"
         )
     fused_dft_mel.LAUNCHES += 1
     return out
 
 
 fused_dft_mel.LAUNCHES = 0
+fused_dft_mel.PREPARATIONS = 0

@@ -24,8 +24,19 @@ never prints its last line):
      --bs 32`` (through its ``main``) over a seeded corpus of 64 48 kHz and
      4 16 kHz WAVs with a reference-format ``.tar`` of those weights; counts
      the kernel's launches and constant preparations in that run, and times
-     warm passes at the default precision and at "highest", each with the
-     kernel and with the twin front-end.
+     warm cold passes (``cache_mb=0``) at the default precision and at
+     "highest", each with the kernel and with the twin front-end;
+  6. serving: ``load_predictor(..., cache_mb=512)`` over the same corpus:
+     ``warmup``, a cold ``interleaved`` pass (filler thread, pinned ring; one
+     kernel launch per batch), a ``cached`` pass (no launch), two
+     ``fetch="async"`` cached passes resolved after both were dispatched, a
+     ``fuse_pass=False`` cached pass, a ``cached_partial`` pass with about
+     half the mel blocks resident, and a fresh ``cache_mb=0`` engine; every
+     result within 1e-5 of the cold pass; audio-s/s (median of 5 warm
+     passes), ``stats["last"]`` and the device idle share (torch.profiler)
+     of each regime;
+  7. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
+     of every port module loads no jax, pandas, yaml or ``nisqa_tpu``.
 
 The last two lines are a JSON record of the kernel and
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +71,8 @@ GOLDEN_BOUND = 2e-4                   # model vs torch golden, absolute
 PASS_BOUND = 1e-3                     # kernel vs twin front-end predictions at "highest"
 DEFAULT_PASS_BOUND = 1e-2             # the same at the default precision (TF32, bf16 DFT)
 WARM_REPS = 5                         # timed warm passes per engine
+SERVE_BOUND = 1e-5                    # every serving regime vs the cold pass, absolute
+BF16_PEAK, TF32_PEAK, HBM_RATE = 989e12, 495e12, 3.35e12  # H100 SXM data sheet, dense
 
 
 class SmokeFailure(RuntimeError):
@@ -138,12 +151,20 @@ def kernel_vs_twin(seed: int, reps: int, card: str):
                     k_ms.append(event_ms(lambda: fused_dft_mel(*args, bf16=bf16), iters))
                     t_ms.append(event_ms(lambda: dft_mel_reference(*args, bf16=bf16), iters))
             kernel_ms, twin_ms = float(np.median(k_ms)), float(np.median(t_ms))
+            # least time for the same work: the products on the tensor cores
+            # (3 TF32 products per exact one), or each input read and the
+            # output written once at the HBM rate, whichever is longer
+            ops_s = flop / BF16_PEAK if bf16 else 3 * flop / TF32_PEAK
+            io_bytes = n * span * (2 if bf16 else 4) + (2 * span * k + k * m + n * m) * 4
+            bound_ms = 1e3 * max(ops_s, io_bytes / HBM_RATE)
             row_tiles, splits, _ = plan_grid(n, n_tiles, sms)
             row = {"sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
                    "grid": [row_tiles, splits], "max_abs_err": abs_err, "rel_err": rel_err,
                    "bound": bound, "repeat_bitwise_equal": repeat_equal,
                    "kernel_ms": kernel_ms, "twin_ms": twin_ms,
-                   "kernel_tflops": flop / kernel_ms / 1e9, "twin_tflops": flop / twin_ms / 1e9}
+                   "kernel_tflops": flop / kernel_ms / 1e9, "twin_tflops": flop / twin_ms / 1e9,
+                   "bound_ms": bound_ms, "bound_by": "operations" if ops_s * HBM_RATE >= io_bytes
+                   else "bytes", "share_of_bound": bound_ms / kernel_ms}
             print("kernel_vs_twin " + json.dumps(row) + f" card: {card}", flush=True)
             check(math.isfinite(rel_err) and rel_err <= bound,
                   f"fused_dft_mel disagrees with its twin: {row}")
@@ -197,22 +218,28 @@ def write_corpus(out_dir: str, seed: int):
     return total
 
 
-def main_path(meta, sd, seed: int, card: str):
+def make_corpus(tmp: str, meta, sd, seed: int):
+    """The seeded corpus and a reference-format ``.tar`` of the released
+    NISQA_DIM weights with the yaml geometry. Returns (tar, paths, audio-s)."""
+    corpus = os.path.join(tmp, "wavs")
+    os.makedirs(corpus)
+    audio_s = write_corpus(corpus, seed)
+    tar = os.path.join(tmp, "nisqa_dim.tar")
+    args = {**meta["model_args"], **YAML_GEOMETRY, "model": "NISQA_DIM", "name": "NISQA_DIM"}
+    torch.save({"args": args, "model_state_dict": sd, "model_name": "NISQA_DIM"}, tar)
+    paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
+    return tar, paths, audio_s
+
+
+def main_path(tar: str, paths, audio_s: float, card: str):
     """Phase 5. Returns the kernel's launch count in the predict_dir run."""
     from nisqa_tpu_torch import run_predict
     from nisqa_tpu_torch.compat.checkpoint import load_model_from_tar
     from nisqa_tpu_torch.data.pipeline import InferenceEngine, MsConfig, native_decode_available
     from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
 
-    with tempfile.TemporaryDirectory(prefix="nisqa_smoke_") as tmp:
-        corpus, out_dir = os.path.join(tmp, "wavs"), os.path.join(tmp, "out")
-        os.makedirs(corpus)
-        os.makedirs(out_dir)
-        audio_s = write_corpus(corpus, seed)
-        tar = os.path.join(tmp, "nisqa_dim.tar")
-        args = {**meta["model_args"], **YAML_GEOMETRY, "model": "NISQA_DIM", "name": "NISQA_DIM"}
-        torch.save({"args": args, "model_state_dict": sd, "model_name": "NISQA_DIM"}, tar)
-        paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
+    with tempfile.TemporaryDirectory(prefix="nisqa_smoke_out_") as out_dir:
+        corpus = os.path.dirname(paths[0])
         print(f"host decode: {'native C++ loader' if native_decode_available() else 'Python decoder'}",
               flush=True)
 
@@ -226,57 +253,226 @@ def main_path(meta, sd, seed: int, card: str):
 
         with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
             table = list(csv.DictReader(f))
-        pred_cols = ["mos_pred", "noi_pred", "dis_pred", "col_pred", "loud_pred"]
-        check(len(table) == len(paths) == 68 and len(rows) == 68,
-              f"NISQA_results.csv has {len(table)} rows for {len(paths)} files")
-        check(list(table[0]) == ["deg", *pred_cols, "model"], f"columns {list(table[0])}")
-        check([r["deg"] for r in table] == [os.path.basename(p) for p in paths], "row order")
-        y_cli = np.array([[float(r[c]) for c in pred_cols] for r in table])
-        check(bool(np.isfinite(y_cli).all()), "non-finite predictions in NISQA_results.csv")
+    pred_cols = ["mos_pred", "noi_pred", "dis_pred", "col_pred", "loud_pred"]
+    check(len(table) == len(paths) == 68 and len(rows) == 68,
+          f"NISQA_results.csv has {len(table)} rows for {len(paths)} files")
+    check(list(table[0]) == ["deg", *pred_cols, "model"], f"columns {list(table[0])}")
+    check([r["deg"] for r in table] == [os.path.basename(p) for p in paths], "row order")
+    y_cli = np.array([[float(r[c]) for c in pred_cols] for r in table])
+    check(bool(np.isfinite(y_cli).all()), "non-finite predictions in NISQA_results.csv")
 
-        model, ckpt_args = load_model_from_tar(tar, "cuda")
-        ms = MsConfig(ckpt_args)
-        plan = InferenceEngine(model, ms, "cuda", batch_size=BATCH).plan(paths)
-        print(f"predict_dir: {len(table)} files, {len(plan)} batches "
-              f"{[(g, len(c)) for g, c in plan]}, fused_dft_mel launches={launches}, "
-              f"constant preparations={preparations}; "
-              f"{audio_s:.1f} audio-s in {wall:.3f} s wall (checkpoint load and first-call "
-              f"set-up included) = {audio_s / wall:.1f} audio-s/s on {card}", flush=True)
-        check(launches == len(plan), f"fused_dft_mel launched {launches}x for {len(plan)} batches")
-        groups = {(sr, kind) for (sr, _, kind), _ in plan}  # one front-end mode per engine
-        check(preparations == len(groups),
-              f"{preparations} constant preparations for {len(groups)} (sr, transport, mode) groups")
+    model, ckpt_args = load_model_from_tar(tar, "cuda")
+    ms = MsConfig(ckpt_args)
+    plan = InferenceEngine(model, ms, "cuda", batch_size=BATCH).plan(paths)
+    print(f"predict_dir: {len(table)} files, {len(plan)} batches "
+          f"{[(g, len(c)) for g, c in plan]}, fused_dft_mel launches={launches}, "
+          f"constant preparations={preparations}; "
+          f"{audio_s:.1f} audio-s in {wall:.3f} s wall (checkpoint load and first-call "
+          f"set-up included) = {audio_s / wall:.1f} audio-s/s on {card}", flush=True)
+    check(launches == len(plan), f"fused_dft_mel launched {launches}x for {len(plan)} batches")
+    groups = {(sr, kind) for (sr, _, kind), _ in plan}  # one front-end mode per engine
+    check(preparations == len(groups),
+          f"{preparations} constant preparations for {len(groups)} (sr, transport, mode) groups")
 
-        engines = {
-            (precision, name): InferenceEngine(model, ms, "cuda", batch_size=BATCH,
-                                               precision=precision, fe_precision=fe,
-                                               dft_mel=dft_mel)
-            for precision, fe in (("default", "fast"), ("highest", "exact"))
-            for name, dft_mel in (("kernel", fused_dft_mel), ("twin", dft_mel_reference))
-        }
-        for engine in engines.values():
-            engine.predict_paths(paths)  # untimed: cuDNN set-up, constant preparation
-        y, secs = {}, {key: [] for key in engines}
-        for r in range(WARM_REPS):  # alternate the order: host noise hits both front-ends alike
-            for key in list(engines)[:: 1 if r % 2 == 0 else -1]:
-                t0 = time.perf_counter()
-                y[key] = engines[key].predict_paths(paths)  # ends in a device readback
-                secs[key].append(time.perf_counter() - t0)
-        for (precision, name), engine in engines.items():
-            dt = float(np.median(secs[precision, name]))
-            print(f"warm pass precision={precision} fe={engine.fe_precision} front-end={name}: "
-                  f"{audio_s / dt:.1f} audio-s/s (median {dt:.4f} s of "
-                  f"{[round(t, 4) for t in secs[precision, name]]}) on {card}", flush=True)
-        for precision, bound in (("default", DEFAULT_PASS_BOUND), ("highest", PASS_BOUND)):
-            got = y[precision, "kernel"]
-            diff = float(np.abs(got - y[precision, "twin"]).max())
-            print(f"kernel vs twin front-end at {precision!r}: max_abs_diff={diff} bound={bound}",
-                  flush=True)
-            check(bool(np.isfinite(got).all()) and diff <= bound,
-                  f"kernel and twin front-ends disagree by {diff} at {precision!r}")
-        print("default-precision CLI vs 'highest': max_abs_diff="
-              f"{float(np.abs(y_cli - y['highest', 'kernel']).max())}", flush=True)
+    # cold passes only (cache_mb=0): every pass runs the front-end
+    engines = {
+        (precision, name): InferenceEngine(model, ms, "cuda", batch_size=BATCH,
+                                           precision=precision, fe_precision=fe,
+                                           dft_mel=dft_mel, cache_mb=0)
+        for precision, fe in (("default", "fast"), ("highest", "exact"))
+        for name, dft_mel in (("kernel", fused_dft_mel), ("twin", dft_mel_reference))
+    }
+    for engine in engines.values():
+        engine.predict_paths(paths)  # untimed: cuDNN set-up, constant preparation
+    y, secs = {}, {key: [] for key in engines}
+    for r in range(WARM_REPS):  # alternate the order: host noise hits both front-ends alike
+        for key in list(engines)[:: 1 if r % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            y[key] = engines[key].predict_paths(paths)  # ends in a device readback
+            secs[key].append(time.perf_counter() - t0)
+    for (precision, name), engine in engines.items():
+        dt = float(np.median(secs[precision, name]))
+        print(f"warm pass precision={precision} fe={engine.fe_precision} front-end={name}: "
+              f"{audio_s / dt:.1f} audio-s/s (median {dt:.4f} s of "
+              f"{[round(t, 4) for t in secs[precision, name]]}) on {card}", flush=True)
+    for precision, bound in (("default", DEFAULT_PASS_BOUND), ("highest", PASS_BOUND)):
+        got = y[precision, "kernel"]
+        diff = float(np.abs(got - y[precision, "twin"]).max())
+        print(f"kernel vs twin front-end at {precision!r}: max_abs_diff={diff} bound={bound}",
+              flush=True)
+        check(bool(np.isfinite(got).all()) and diff <= bound,
+              f"kernel and twin front-ends disagree by {diff} at {precision!r}")
+    print("default-precision CLI vs 'highest': max_abs_diff="
+          f"{float(np.abs(y_cli - y['highest', 'kernel']).max())}", flush=True)
     return launches
+
+
+def idle_share(fn):
+    """(device busy s, wall s, idle share) of one call of ``fn``: the union
+    of the device activity intervals in a ``torch.profiler`` trace over the
+    host wall time of the call (which ends in a synchronise); prints the
+    call's ten largest device items. Returns None for the busy time and the
+    share when the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    if not device:
+        return None, wall, None
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print("  device ms by kernel: " + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top),
+          flush=True)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy_us + cur_e - cur_s) / 1e6
+    return busy, wall, max(0.0, 1.0 - busy / wall)
+
+
+def serving(tar: str, paths, audio_s: float, card: str):
+    """Phase 6: the serving engine through ``load_predictor`` at bs 32,
+    default precision. Returns {regime: kernel launches in its pass}."""
+    import nisqa_tpu_torch
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+
+    def launched(fn):
+        fused_dft_mel.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fused_dft_mel.LAUNCHES
+
+    def report(regime, predict, fn, y_ref=None, profile_it=True, passes=1):
+        secs = []
+        for _ in range(WARM_REPS):
+            t0 = time.perf_counter()
+            y = fn()
+            secs.append(time.perf_counter() - t0)
+        dt = float(np.median(secs))
+        if y_ref is not None:
+            diff = float(np.abs(y - y_ref).max())
+            check(diff <= SERVE_BOUND, f"{regime}: warm passes off by {diff} from the cold pass")
+        busy, wall, idle = idle_share(fn) if profile_it else (None, None, None)
+        idle_txt = ("not measured" if idle is None else
+                    f"{idle:.4f} (device busy {busy:.4f} s of {wall:.4f} s, torch.profiler)")
+        print(f"serving {regime}: {passes * audio_s / dt:.1f} audio-s/s (median {dt:.4f} s of "
+              f"{[round(t, 4) for t in secs]}); idle share {idle_txt}; "
+              f"stats.last {json.dumps(predict.engine.stats['last'])} on {card}", flush=True)
+
+    predict = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=512)
+    eng = predict.engine
+    n_batches = len(eng.plan(paths))
+    t0 = time.perf_counter()
+    warmed = eng.warmup(paths)
+    print(f"warmup: {len(warmed)} shapes {warmed} in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    launches = {}
+    y_cold, launches["interleaved"] = launched(lambda: predict(paths))
+    last = eng.stats["last"]
+    print(f"serving cold pass: stats.last {json.dumps(last)}, fused_dft_mel "
+          f"launches={launches['interleaved']} for {n_batches} batches", flush=True)
+    check(last["mode"] == "interleaved", f"first pass ran {last['mode']}, not interleaved")
+    check(launches["interleaved"] == n_batches,
+          f"cold pass launched the kernel {launches['interleaved']}x for {n_batches} batches")
+    check(bool(np.isfinite(y_cold).all()) and y_cold.shape == (len(paths), 5),
+          f"cold pass gave {y_cold.shape} or non-finite values")
+
+    y_cached, launches["cached"] = launched(lambda: predict(paths))
+    last = eng.stats["last"]
+    diff = float(np.abs(y_cached - y_cold).max())
+    print(f"serving cached pass: stats.last {json.dumps(last)}, fused_dft_mel "
+          f"launches={launches['cached']}, max_abs_diff vs cold={diff} bound={SERVE_BOUND}",
+          flush=True)
+    check(last["mode"] == "cached", f"second pass ran {last['mode']}, not cached")
+    check(launches["cached"] == 0, f"a cached pass launched the kernel {launches['cached']}x")
+    check(diff <= SERVE_BOUND, f"cached pass off by {diff} from the cold pass")
+
+    def two_async():
+        h1, h2 = predict(paths, fetch="async"), predict(paths, fetch="async")
+        return h1(), h2()
+
+    (ya, yb), launches["async"] = launched(two_async)
+    diff = max(float(np.abs(ya - y_cold).max()), float(np.abs(yb - y_cold).max()))
+    print(f"serving two async cached passes: max_abs_diff vs cold={diff}, fused_dft_mel "
+          f"launches={launches['async']}", flush=True)
+    check(diff <= SERVE_BOUND and launches["async"] == 0, f"async passes off by {diff}")
+    report("cached (fused)", predict, lambda: predict(paths), y_cold)
+    report("cached, two async passes per timing", predict, lambda: two_async()[1], y_cold,
+           profile_it=False, passes=2)
+    full_mb = eng._cache_bytes / (1 << 20)
+
+    per_batch = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=512,
+                                               fuse_pass=False)
+    per_batch(paths)
+    y_pb = per_batch(paths)
+    diff = float(np.abs(y_pb - y_cached).max())
+    print(f"serving fuse_pass=False cached pass: max_abs_diff vs fused={diff}; stats.last "
+          f"{json.dumps(per_batch.engine.stats['last'])}", flush=True)
+    check(per_batch.engine.stats["last"]["mode"] == "cached" and diff <= SERVE_BOUND,
+          f"fuse_pass=False cached pass off by {diff} from the fused one")
+    del per_batch
+
+    partial = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=full_mb / 2)
+    partial.engine.warmup(paths)
+    partial(paths)
+    (y_part, launches["cached_partial"]) = launched(lambda: partial(paths))
+    last = partial.engine.stats["last"]
+    diff = float(np.abs(y_part - y_cold).max())
+    print(f"serving partial pass (cache_mb={full_mb / 2:.3f} of {full_mb:.3f} MB): stats.last "
+          f"{json.dumps(last)}, fused_dft_mel launches={launches['cached_partial']}, "
+          f"max_abs_diff vs cold={diff}", flush=True)
+    check(last["mode"] == "cached_partial", f"partial pass ran {last['mode']}")
+    check(last["resident_batches"] > 0 and last["cold_batches"] > 0,
+          f"partial pass kept {last['resident_batches']} resident, {last['cold_batches']} cold")
+    check(launches["cached_partial"] == last["cold_batches"],
+          f"partial pass launched the kernel {launches['cached_partial']}x for "
+          f"{last['cold_batches']} cold batches")
+    check(diff <= SERVE_BOUND, f"partial pass off by {diff} from the cold pass")
+    report("cached_partial", partial, lambda: partial(paths), y_cold)
+    del partial
+
+    cold = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=0)
+    cold.engine.warmup(paths)
+    cold(paths)
+    report("interleaved (cache_mb=0)", cold, lambda: cold(paths), y_cold)
+    check(cold.engine.stats["last"]["mode"] == "interleaved",
+          f"cache_mb=0 pass ran {cold.engine.stats['last']['mode']}")
+    return launches
+
+
+def import_check():
+    """The port loaded nothing of JAX or of the JAX package in this run, and
+    importing it and all its submodules in a fresh process loads no jax,
+    pandas, yaml or ``nisqa_tpu`` module (the card's machine has them all)."""
+    banned = ("jax", "jaxlib", "nisqa_tpu")
+    here = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+    check(not here, f"this run imported JAX code: {here[:10]}")
+    code = ("import sys, importlib, pkgutil\n"
+            "import nisqa_tpu_torch\n"
+            "for m in pkgutil.walk_packages(nisqa_tpu_torch.__path__, 'nisqa_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml')))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
+                       env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
+    check(r.returncode == 0, f"importing the port failed: {r.stderr[-2000:]}")
+    check(r.stdout.strip() == "[]", f"importing the port loaded {r.stdout.strip()}")
+    print("imports: no jax, jaxlib, nisqa_tpu, pandas or yaml module loaded by the port",
+          flush=True)
 
 
 def main(argv=None):
@@ -306,17 +502,16 @@ def main(argv=None):
     print(f"SASS: {n_hgmma} HGMMA (wgmma) instructions", flush=True)
     check(n_hgmma > 0, "no HGMMA instruction in the kernel library: the tensor cores are unused")
 
-    # 3-5
+    # 3-6
     results, main = kernel_vs_twin(opts.seed, opts.reps, card)
     meta, sd = model_golden()
-    launches = main_path(meta, sd, opts.seed, card)
-    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-                      or m.startswith(("nisqa_tpu.model", "nisqa_tpu.data.pipeline",
-                                       "nisqa_tpu.compat.torch_ckpt", "nisqa_tpu.ops")))
-    check(not jax_mods, f"the port imported JAX code: {jax_mods[:10]}")
-    print("imports: no jax module loaded; pandas/yaml loaded: "
-          f"{[m for m in ('pandas', 'yaml') if m in sys.modules]}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="nisqa_smoke_") as tmp:
+        tar, paths, audio_s = make_corpus(tmp, meta, sd, opts.seed)
+        launches = main_path(tar, paths, audio_s, card)
+        serving_launches = serving(tar, paths, audio_s, card)
+    import_check()
 
+    fast, exact = main["fast"], main["exact"]
     record = {"kernels": [{
         "name": "fused_dft_mel",
         "route": "cuda",
@@ -324,10 +519,15 @@ def main(argv=None):
         "replaces": "nisqa_tpu/ops/pallas_mel.py:99",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in results),
-        "ms": main["fast"]["kernel_ms"],
-        "plain_ms": main["fast"]["twin_ms"],
-        "exact_ms": main["exact"]["kernel_ms"],
-        "exact_plain_ms": main["exact"]["twin_ms"],
+        "ms": fast["kernel_ms"],
+        "plain_ms": fast["twin_ms"],
+        "bound_ms": fast["bound_ms"],
+        "bound_by": fast["bound_by"],
+        "library_ms": None,  # no one PyTorch call computes windowed DFT -> |.| -> mel
+        "exact_ms": exact["kernel_ms"],
+        "exact_plain_ms": exact["twin_ms"],
+        "exact_bound_ms": exact["bound_ms"],
+        "launches_by_pass": {"predict_dir": launches, **serving_launches},
     }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)

@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from nisqa_tpu.compat.model_args import model_args_from_ckpt_args
-
 from ..models.nisqa import build_model
+from .model_args import model_args_from_ckpt_args
 
 
 def load_torch_checkpoint(path: str) -> dict:

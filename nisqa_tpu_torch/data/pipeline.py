@@ -1,33 +1,63 @@
 """Batched inference engine: wav -> mel -> segments -> model, on one device.
 
 Counterpart of ``nisqa_tpu/data/pipeline.py``. ``MsConfig``,
-``front_end_consts`` and ``validate_filled_row`` are numpy-only and are
-moved here unchanged, because the JAX file imports jax; the tests hold them
-equal to the originals. :class:`InferenceEngine` is the JAX engine's cold
-pass (``pipeline.py:1033-1221``, interleaved branch) without the corpus
-cache, fused cached passes, async fetch, warmup, mesh or filler thread:
+``front_end_consts``, ``validate_filled_row`` and ``_resident_split`` are
+numpy-only and are moved here unchanged, because the JAX file imports jax;
+the tests hold them equal to the originals. :class:`InferenceEngine` keeps
+the JAX engine's method names for its serving regimes (single-ended models;
+``stats["last"]["mode"]`` names the regime):
 
-  host : header scan -> (sr, transport) groups -> length-sorted batches,
-         each padded to a geometric T bucket -> decode + reflect-pad fill
-  device: mel_fn (fused DFT->mel kernel) -> seg_fn -> model, per batch
+  interleaved (cold pass):
+    host  : header scan -> (sr, transport) groups -> length-sorted batches,
+            each padded to a geometric T bucket
+    filler: one background thread decodes + reflect-pads batch j+1 into a
+            pinned staging slot (a ring of ``RING_SLOTS`` per transport)
+            while the main thread copies and runs batch j
+    device: copy stream: pinned slot -> device (non_blocking); compute
+            stream, after the copy's event: mel stage (``mel_fn``, the fused
+            DFT->mel kernel) -> seg+model stage (``seg_fn`` -> model)
+    cache : each batch's mel dB and n stay on the device, keyed by the
+            corpus's (path, size, mtime_ns), LRU under ``cache_mb``
+  cached: seg+model over the resident mel blocks (no decode, no upload, no
+          front-end); runs of same-shape blocks are concatenated on the
+          device once and run as one (k*bs) batch ("fused" parts)
+  cached_partial: a corpus over ``cache_mb`` keeps the batches that fit
+          resident; the cold tail is re-scanned and re-filled every pass
+
+Every regime ends in one device->host readback per pass (``fetch``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
+import sys
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as wait_futures
 
 import numpy as np
 import torch
 
-from nisqa_tpu.audio import wav as wavio
-from nisqa_tpu.audio.filters import mel_filterbank, padded_window
-from nisqa_tpu.audio.melspec import pad_audio_for_batch
-from nisqa_tpu.data import native
-
+from ..audio import wav as wavio
+from ..audio.filters import mel_filterbank, padded_window
+from ..audio.melspec import pad_audio_for_batch
 from ..ops.dft_mel import fused_dft_mel
+from . import native
 from .front_end import frame_geometry, mel_fn, seg_fn
+
+# Cached passes over plans of at most FUSE_WHOLE_MAX batches keep their mel
+# blocks in one flat device tensor (mode "mel_fused"); bigger plans keep one
+# concatenated block per part (mode "mel_fused_parts"). Both run the parts of
+# _fuse_plan_chunks. The names follow the JAX engine (pipeline.py:315-323).
+FUSE_WHOLE_MAX = 32
+# per-part working-set budget (segment tensor + attention score estimate, bytes)
+_FUSE_CHUNK_BYTES = 512 * (1 << 20)
+# pinned staging slots per transport: the filler runs at most this many
+# batches of one transport ahead of the copies
+RING_SLOTS = 3
 
 
 class MsConfig:
@@ -127,9 +157,26 @@ def validate_filled_row(ms: MsConfig, path, n, sr, sr_got=None):
         raise ValueError(f"Error loading file {path}: {e}") from None
 
 
+def _resident_split(items, bytes_of, cap):
+    """The partial-caching greedy, shared by the cold pass's store (actual
+    nbytes) and warmup's mirror (byte estimates): walk ``items`` in plan
+    order, keep every item whose bytes still fit under ``cap`` resident; the
+    rest go cold. Not prefix-only: a too-big batch is skipped but later
+    smaller ones may still fit."""
+    resident, cold, used = [], [], 0
+    for it in items:
+        b = bytes_of(it)
+        if used + b <= cap:
+            resident.append(it)
+            used += b
+        else:
+            cold.append(it)
+    return resident, cold, used
+
+
 def native_decode_available() -> bool:
-    """Whether host decode runs in the C++ loader (``native/``, built with
-    make at first use) rather than the Python decoder."""
+    """Whether host decode runs in the C++ loader (``native/wavloader.cpp``,
+    built with g++ at first use into ``_build/``) rather than in Python."""
     return native.available()
 
 
@@ -138,7 +185,7 @@ def matmul_precision(precision: str):
     """'highest': float32 matmuls and convolutions (TF32 off in cuBLAS AND
     cuDNN, which defaults to TF32 for float32 convolutions); 'default':
     TF32 allowed in both. The flags are process-global, so they are set
-    around the forward and restored after it."""
+    around a pass's dispatches and restored after it."""
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     tf32 = precision != "highest"
     torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -149,19 +196,69 @@ def matmul_precision(precision: str):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class _Slot:
+    """One host staging buffer of the ring: pinned on a CUDA engine.
+
+    The filler takes the slot (:meth:`acquire`) before it fills it; the main
+    thread gives it back (:meth:`release`) with the CUDA event recorded after
+    the host->device copy that reads it. The next :meth:`acquire` waits for
+    that event, so a slot is never refilled while its copy is in flight.
+    ``buf`` is flat and grows to the largest batch it has held (pinned
+    allocation is slow, so it is done once per size, not per batch).
+    """
+
+    def __init__(self, dtype, bs: int, pin: bool):
+        self.dtype, self.bs, self.pin = dtype, bs, pin
+        self.buf = None
+        self.n = torch.empty((bs,), dtype=torch.int32, pin_memory=pin)
+        self.copied = None
+        self._free = threading.Event()
+        self._free.set()
+
+    def acquire(self, buf_len: int):
+        """Wait until the slot is free and its last copy is done; returns
+        (buf (bs, buf_len), n (bs,)) numpy views of the pinned memory."""
+        self._free.wait()
+        self._free.clear()
+        if self.copied is not None:
+            self.copied.synchronize()
+            self.copied = None
+        numel = self.bs * buf_len
+        if self.buf is None or self.buf.numel() < numel:
+            self.buf = None
+            self.buf = torch.empty((numel,), dtype=self.dtype, pin_memory=self.pin)
+        return self.buf[:numel].numpy().reshape(self.bs, buf_len), self.n.numpy()
+
+    def rows(self, buf_len: int):
+        return self.buf[: self.bs * buf_len].view(self.bs, buf_len)
+
+    def release(self, event=None):
+        if event is not None:
+            self.copied = event
+        self._free.set()
+
+
 class InferenceEngine:
-    """Cold-pass batched predictor over audio paths for one device.
+    """Batched predictor over audio paths for one device.
 
     ``precision``: 'default' (TF32 allowed) or 'highest' (float32).
     ``fe_precision``: 'exact' (float32 DFT) or 'fast' (bf16 DFT operands,
     float32 accumulation); None follows ``precision`` like the JAX engine
     ('exact' under 'highest', else 'fast'). ``dft_mel`` is the DFT->mel
     step; the default launches the CUDA kernel for device tensors.
+    ``fuse_pass``: None/True concatenate same-shape resident mel blocks for
+    cached passes; False runs cached passes batch by batch. ``cache_mb``:
+    device budget of the corpus mel cache (0 turns it off).
     """
 
     def __init__(self, model, ms: MsConfig, device, batch_size: int = 32,
                  num_workers: int = 8, precision: str | None = "default",
-                 fe_precision: str | None = None, dft_mel=fused_dft_mel):
+                 fe_precision: str | None = None, dft_mel=fused_dft_mel,
+                 fuse_pass: bool | None = None, cache_mb: float = 512):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.ms = ms
@@ -176,7 +273,17 @@ class InferenceEngine:
             raise ValueError(f"fe_precision must be 'exact' or 'fast', got {fe_precision!r}")
         self.fe_precision = fe_precision
         self.dft_mel = dft_mel
+        self.fuse_pass = fuse_pass
+        self.cache_mb = float(cache_mb)
+        self._corpus_cache = {}  # fingerprint -> entry, in LRU order
+        self._cache_bytes = 0
+        self.stats = {"passes": 0, "files": 0, "cache_hits": 0, "last": None}
         self._consts = {}
+        self._rings = {}  # transport -> [_Slot] * RING_SLOTS
+        self._ring_next = {}
+        self._fill_ex = None
+        self._cuda = self.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
 
     # -- host side -----------------------------------------------------------
 
@@ -250,18 +357,43 @@ class InferenceEngine:
         """The batching plan :meth:`predict_paths` runs for ``paths``."""
         return self._plan_for(self._metas_for(self._scan_transport(list(paths))))
 
-    def _fill(self, chunk, audio, paths, buf_len, kind):
-        """Decode + reflect-pad one batch into a (bs, buf_len) host buffer.
-        Rows past the chunk are zeros with row 0's length (finite, and
-        dropped after the forward)."""
+    def _host_buf(self, kind: str) -> _Slot:
+        """The next staging slot of ``kind``'s ring (taken in plan order by
+        the main thread, filled in the same order by the filler)."""
+        ring = self._rings.get(kind)
+        if ring is None:
+            dtype = torch.int16 if kind == "i16" else torch.float32
+            ring = self._rings[kind] = [_Slot(dtype, self.batch_size, self._cuda)
+                                        for _ in range(RING_SLOTS)]
+            self._ring_next[kind] = 0
+        j = self._ring_next[kind]
+        self._ring_next[kind] = (j + 1) % RING_SLOTS
+        return ring[j]
+
+    def _make_batch(self, slot: _Slot, chunk, audio, paths, buf_len, kind):
+        """Decode + reflect-pad one batch into ``slot`` (runs on the filler
+        thread). Rows past the chunk take row 0's length (finite, dropped
+        after the forward)."""
         bs, pad, ms = self.batch_size, self.ms.n_fft // 2, self.ms
-        dtype = np.int16 if kind == "i16" else np.float32
-        buf = np.zeros((bs, buf_len), dtype)
-        n = np.zeros((bs,), np.int32)
-        tags = ("native",) if kind == "i16" else ("native", "native_f32")
+        buf, n = slot.acquire(buf_len)
+        if kind == "i16":
+            # raw PCM16 transport: [left reflect][samples][right reflect]
+            # [bounded garbage]. No zeroing: int16 garbage is bounded, gives
+            # finite mels, and every garbage frame/segment is masked
+            # downstream by n_frames/n_wins.
+            tags = ("native",)
+        else:
+            buf.fill(0)
+            tags = ("native", "native_f32")
         native_items = [(j, i) for j, i in enumerate(chunk) if audio[i][0] in tags]
         if native_items:
-            target = np.zeros((len(native_items), buf_len), dtype)
+            # C++ decode + reflect-pad fill, threaded, GIL-free. When the
+            # whole chunk is native (the common case) fill the batch rows in
+            # place; otherwise use a scratch block.
+            all_native = len(native_items) == len(chunk)
+            dtype = np.int16 if kind == "i16" else np.float32
+            target = buf[: len(chunk)] if all_native else np.zeros(
+                (len(native_items), buf_len), dtype)
             src = [paths[i] for _, i in native_items]
             if kind == "i16":
                 ns, srs, status = native.fill_batch_i16(src, target, pad, n_threads=self.num_workers)
@@ -271,7 +403,9 @@ class InferenceEngine:
             for row, (j, i) in enumerate(native_items):
                 if status[row] == 0:
                     validate_filled_row(ms, paths[i], ns[row], audio[i][2], srs[row])
-                    buf[j], n[j] = target[row], ns[row]
+                    if not all_native:
+                        buf[j] = target[row]
+                    n[j] = ns[row]
                     continue
                 # rare race (file changed since scan): decode in Python below
                 x, sr_got = self._load_audio(paths[i])
@@ -286,18 +420,30 @@ class InferenceEngine:
             ln = len(x)
             if kind == "i16":
                 buf[j, :pad] = x[pad:0:-1]
+                # under seg_hop subsampling a file's ceil-remainder tail may
+                # extend past the bucket's read span: clamp to the buffer; n
+                # keeps the true count so device masks match the plan
                 w = min(ln, buf_len - pad)
                 buf[j, pad : pad + w] = x[:w]
                 take = min(pad, buf_len - (pad + ln))
                 if take > 0:
                     buf[j, pad + ln : pad + ln + take] = x[ln - 2 : ln - 2 - take : -1]
             else:
+                if tag == "i16":
+                    x = x.astype(np.float32) / 32768.0
                 padded = pad_audio_for_batch(x, ms.n_fft, ln + ms.n_fft)
                 w = min(len(padded), buf_len)
                 buf[j, :w] = padded[:w]
             n[j] = ln
         n[len(chunk):] = n[0]
-        return buf, n
+
+    def _fill_pool(self):
+        """One background filler thread: fills batch j+1 while the main
+        thread copies and dispatches batch j (the native fill releases the
+        GIL). One thread keeps fills in plan order, the order of the ring."""
+        if self._fill_ex is None:
+            self._fill_ex = ThreadPoolExecutor(1, thread_name_prefix="nisqa-filler")
+        return self._fill_ex
 
     # -- device side ---------------------------------------------------------
 
@@ -310,28 +456,430 @@ class InferenceEngine:
             }
         return self._consts[key]
 
-    def _forward(self, gkey, buf, n):
-        sr, bucket, kind = gkey
-        audio = torch.from_numpy(buf).to(self.device)
-        n_samples = torch.from_numpy(n).to(self.device, dtype=torch.int64)
-        db = mel_fn(self.ms, sr, bucket, self._consts_for(sr, kind), audio, n_samples,
-                    fast=self.fe_precision == "fast", dft_mel=self.dft_mel)
-        return self.model(*seg_fn(self.ms, sr, bucket, db, n_samples))
+    def _upload(self, slot: _Slot, buf_len: int):
+        """Host slot -> device (audio, n int64), then give the slot back.
 
-    def predict_paths(self, paths):
-        """Predict for audio paths -> (N, out_dim) float32, in input order."""
+        On CUDA the copy is non_blocking from pinned memory on the copy
+        stream; the compute stream waits on the copy's event, and the device
+        tensors are marked as used by the compute stream."""
+        host = slot.rows(buf_len)
+        if not self._cuda:
+            audio, n = host.clone(), slot.n.to(torch.int64)
+            slot.release()
+            return audio, n
+        cur = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            audio = host.to(self.device, non_blocking=True)
+            n32 = slot.n.to(self.device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+        slot.release(copied)
+        cur.wait_event(copied)
+        audio.record_stream(cur)
+        n32.record_stream(cur)
+        return audio, n32.to(torch.int64)
+
+    def _mel(self, gkey, audio, n):
+        """Mel stage (the JAX engine's ``_pipeline`` front half): audio ->
+        mel dB (B, F, M), kept for the corpus cache."""
+        sr, bucket, kind = gkey
+        return mel_fn(self.ms, sr, bucket, self._consts_for(sr, kind), audio, n,
+                      fast=self.fe_precision == "fast", dft_mel=self.dft_mel)
+
+    def _seg_model(self, gkey, db, n):
+        """Seg+model stage (the JAX engine's ``_seg_pipeline``): mel dB ->
+        predictions, for any multiple of the batch size in rows."""
+        sr, bucket, _ = gkey
+        return self.model(*seg_fn(self.ms, sr, bucket, db, n))
+
+    def _sync(self):
+        if self._cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _run_cold(self, batches, audio, paths, timings, keep):
+        """Fill (filler thread) -> upload -> mel -> seg+model for each
+        (gkey, chunk). Returns the per-batch outputs and, with ``keep``, the
+        (gkey, chunk, db, n) device blocks for the cache. A filler exception
+        reaches the caller through ``fut.result()``."""
+        timings["fill_s"] = 0.0
+
+        def fill(slot, chunk, buf_len, kind):
+            tf = time.perf_counter()
+            self._make_batch(slot, chunk, audio, paths, buf_len, kind)
+            timings["fill_s"] += time.perf_counter() - tf
+
+        jobs = []
+        for gkey, chunk in batches:
+            buf_len = frame_geometry(self.ms, gkey[0], gkey[1])[4]
+            slot = self._host_buf(gkey[2])
+            jobs.append((slot, buf_len, self._fill_pool().submit(fill, slot, chunk, buf_len, gkey[2])))
+        ys, kept = [], []
+        wait_s = dispatch_s = 0.0
+        try:
+            for (gkey, chunk), (slot, buf_len, fut) in zip(batches, jobs):
+                tw = time.perf_counter()
+                fut.result()
+                td = time.perf_counter()
+                wait_s += td - tw
+                audio_d, n_d = self._upload(slot, buf_len)
+                db = self._mel(gkey, audio_d, n_d)
+                ys.append(self._seg_model(gkey, db, n_d))
+                if keep:
+                    kept.append((gkey, chunk, db, n_d))
+                dispatch_s += time.perf_counter() - td
+        except BaseException:
+            # free the filler: drop the fills not started, hand every slot
+            # back (a running fill may wait on one), and again once it ends
+            for _, _, fut in jobs:
+                fut.cancel()
+            for slot, _, _ in jobs:
+                slot.release()
+            wait_futures([fut for _, _, fut in jobs])
+            for slot, _, _ in jobs:
+                slot.release()
+            raise
+        timings["wait_s"] = timings.get("wait_s", 0.0) + wait_s
+        timings["dispatch_s"] = timings.get("dispatch_s", 0.0) + dispatch_s
+        return ys, kept
+
+    # -- corpus cache ----------------------------------------------------------
+
+    def _fingerprint(self, paths):
+        """Corpus identity for the device cache: every file's
+        (path, size, mtime_ns), or None when caching is off/unavailable."""
+        if self.cache_mb <= 0:
+            return None
+        try:
+            items = []
+            for p in paths:
+                st = os.stat(p)
+                items.append((p, st.st_size, st.st_mtime_ns))
+            return tuple(items)
+        except OSError:
+            return None
+
+    def _cap_bytes(self):
+        return int(self.cache_mb * (1 << 20))
+
+    def _cache_store(self, fp, entry):
+        cap = self._cap_bytes()
+        if entry["bytes"] > cap:
+            return
+        while self._cache_bytes + entry["bytes"] > cap and self._corpus_cache:
+            oldest = next(iter(self._corpus_cache))
+            self._cache_bytes -= self._corpus_cache.pop(oldest)["bytes"]
+        self._corpus_cache[fp] = entry
+        self._cache_bytes += entry["bytes"]
+
+    def _cache_replace(self, fp, entry):
+        old = self._corpus_cache.pop(fp, None)
+        if old is not None:
+            self._cache_bytes -= old["bytes"]
+        self._cache_store(fp, entry)
+        return entry
+
+    def _store_cold(self, fp, plan, kept):
+        """Keep as many of the cold pass's mel blocks resident as fit the
+        cap (plan order, longest files first); the rest is recorded as a
+        cold tail that cached passes re-fill every pass."""
+        resident, cold, used = _resident_split(kept, lambda t: _nbytes(t[2], t[3]),
+                                               self._cap_bytes())
+        if not resident:
+            return
+        cold_tail = [(gkey, chunk) for gkey, chunk, _, _ in cold]
+        if cold_tail:
+            # sizing advisory on stderr (stdout carries the results)
+            need_mb = -(-sum(_nbytes(t[2], t[3]) for t in kept) // (1 << 20))
+            print(
+                f"nisqa_tpu_torch: corpus mels exceed the serving cache cap "
+                f"({self.cache_mb:.0f} MB): {len(resident)}/{len(kept)} batches stay "
+                f"device-resident, {len(cold_tail)} re-decode+re-upload per pass. "
+                f"Full residency needs serving_cache_mb >= {need_mb}.",
+                file=sys.stderr,
+            )
+        self._cache_store(fp, {"mode": "mel", "plan": plan, "batches": resident,
+                               "cold": cold_tail, "bytes": used})
+
+    def _fuse_cached(self, plan):
+        """fuse_pass None/True: cached passes run concatenated parts; a
+        single-batch plan has nothing to concatenate."""
+        return self.fuse_pass is not False and len(plan) > 1
+
+    def _fuse_plan_chunks(self, plan):
+        """Partition a plan into fused parts: maximal runs of consecutive
+        same-(sr, bucket, transport) batches, capped so one part's working
+        set (segment tensor + a T^2 attention-score estimate) stays under
+        _FUSE_CHUNK_BYTES. Returns [[plan indices], ...]."""
+        bs = self.batch_size
+        chunks, i = [], 0
+        while i < len(plan):
+            gkey = plan[i][0]
+            T = gkey[1]
+            per_sample = T * self.ms.n_mels * self.ms.seg_length * 4 + 4 * T * T
+            k_cap = max(1, min(16, _FUSE_CHUNK_BYTES // max(1, bs * per_sample)))
+            j = i
+            while j < len(plan) and plan[j][0] == gkey and j - i < k_cap:
+                j += 1
+            chunks.append(list(range(i, j)))
+            i = j
+        return chunks
+
+    def _upgrade_to_fused_parts(self, fp, hit):
+        """Each part's resident blocks are concatenated on the device into
+        one (k*bs, F, M) block (mode 'mel_fused_parts'); a cached pass then
+        runs one seg+model call per part at batch k*bs. Per-sample compute
+        is independent, so the outputs equal k calls of bs."""
+        parts = []
+        for idxs in self._fuse_plan_chunks(hit["plan"]):
+            blocks = [hit["batches"][i] for i in idxs]
+            db = torch.cat([b[2] for b in blocks]) if len(blocks) > 1 else blocks[0][2]
+            n = torch.cat([b[3] for b in blocks]) if len(blocks) > 1 else blocks[0][3]
+            parts.append((blocks[0][0], db, n))
+        return self._cache_replace(fp, {
+            "mode": "mel_fused_parts", "plan": hit["plan"], "parts": parts,
+            "bytes": sum(_nbytes(db, n) for _, db, n in parts)})
+
+    def _upgrade_to_mel_fused(self, fp, hit):
+        """One-time upgrade of a fully resident entry: plans of at most
+        FUSE_WHOLE_MAX batches move their mel blocks into one flat device
+        tensor (mode 'mel_fused'), whose parts are views; bigger plans
+        upgrade to concatenated parts."""
+        plan = hit["plan"]
+        if len(plan) > FUSE_WHOLE_MAX:
+            return self._upgrade_to_fused_parts(fp, hit)
+        blocks = hit["batches"]
+        flat = torch.cat([b[2].reshape(-1) for b in blocks])
+        ns = torch.cat([b[3] for b in blocks])
+        offsets = np.cumsum([0] + [b[2].numel() for b in blocks])
+        bs, M = self.batch_size, self.ms.n_mels
+        parts = []
+        for idxs in self._fuse_plan_chunks(plan):
+            i, j = idxs[0], idxs[-1] + 1
+            gkey = plan[i][0]
+            db = flat[int(offsets[i]) : int(offsets[j])].view(
+                (j - i) * bs, self.ms.frames_for_bucket(gkey[1]), M)
+            parts.append((gkey, db, ns[i * bs : j * bs]))
+        return self._cache_replace(fp, {
+            "mode": "mel_fused", "plan": plan, "flat": flat, "ns": ns, "parts": parts,
+            "bytes": _nbytes(flat, ns)})
+
+    def _run_fused_parts(self, hit):
+        """One seg+model call per part, outputs in plan order."""
+        return [self._seg_model(gkey, db, n) for gkey, db, n in hit["parts"]]
+
+    def _partial_cached_pass(self, hit, paths, N, fetch, timings):
+        """Cache hit for a corpus that only partly fits ``cache_mb``: the
+        resident batches run seg+model over their cached mel blocks first
+        (the device works on them while the host scans the tail); then only
+        the cold tail's files are re-scanned, re-filled and re-uploaded."""
+        cold = hit["cold"]
+        timings["resident_batches"] = len(hit["batches"])
+        timings["cold_batches"] = len(cold)
+        td = time.perf_counter()
+        ys = [self._seg_model(gkey, db, n) for gkey, _, db, n in hit["batches"]]
+        timings["dispatch_s"] = time.perf_counter() - td
+
+        ts = time.perf_counter()
+        tail_idx = sorted({i for _, chunk in cold for i in chunk})
+        audio = [None] * N
+        for i, e in zip(tail_idx, self._scan_transport([paths[i] for i in tail_idx])):
+            audio[i] = e
+        timings["scan_plan_s"] = time.perf_counter() - ts
+
+        ys += self._run_cold(cold, audio, paths, timings, keep=False)[0]
+        chunks = [chunk for _, chunk, _, _ in hit["batches"]] + [chunk for _, chunk in cold]
+        return self._collect(ys, chunks, N, fetch, timings)
+
+    # -- passes ------------------------------------------------------------------
+
+    def predict_paths(self, paths, paths_ref=None, fetch=True):
+        """Predict for audio paths -> (N, out_dim) float32, in input order.
+
+        Runs one of the regimes of the module docstring; all give the same
+        predictions. ``fetch=False`` synchronises and returns None.
+        ``fetch="async"`` returns a zero-argument handle that yields the
+        result: on a fully cached pass the readback is deferred into the
+        handle (it waits on the copy's CUDA event), so the caller can
+        dispatch the next pass first; cold and partial passes resolve
+        eagerly (their staging slots are reused by the next pass) and the
+        handle hands the result back.
+        """
+        if paths_ref is not None:
+            raise NotImplementedError(
+                "double-ended models (paths_ref) are not ported to nisqa_tpu_torch yet "
+                "(ROADMAP.md Queue 1 item 5)")
+        if fetch not in (True, False, "async"):
+            raise ValueError(f"fetch must be True, False or 'async', got {fetch!r}")
         paths = list(paths)
-        if not paths:
-            return np.zeros((0, 5 if self.model.dim else 1), np.float32)
+        N = len(paths)
+        if N == 0:
+            empty = np.zeros((0, 5 if self.model.dim else 1), np.float32)
+            if fetch == "async":
+                return lambda: empty
+            return empty if fetch else None
+        t0 = time.perf_counter()
+        fp = self._fingerprint(paths)
+        hit = self._corpus_cache.pop(fp, None) if fp is not None else None
+        with torch.inference_mode(), matmul_precision(self.precision):
+            if hit is not None:
+                self._corpus_cache[fp] = hit  # LRU refresh
+                return self._cached_pass(fp, hit, paths, N, fetch, t0)
+            return self._cold_pass(fp, paths, N, fetch, t0)
+
+    def _cold_pass(self, fp, paths, N, fetch, t0):
         audio = self._scan_transport(paths)
         plan = self._plan_for(self._metas_for(audio))
-        ys = []
-        with torch.inference_mode(), matmul_precision(self.precision):
-            for gkey, chunk in plan:
-                buf_len = frame_geometry(self.ms, gkey[0], gkey[1])[4]
-                buf, n = self._fill(chunk, audio, paths, buf_len, gkey[2])
-                ys.append(self._forward(gkey, buf, n)[: len(chunk)])
-            all_y = torch.cat(ys).cpu().numpy()  # the pass's one readback
-        out = np.zeros((len(paths), all_y.shape[1]), np.float32)
-        out[np.concatenate([np.asarray(c) for _, c in plan])] = all_y
+        t_plan = time.perf_counter()
+        timings = {}
+        ys, kept = self._run_cold(plan, audio, paths, timings, keep=fp is not None)
+        if fp is not None:
+            self._store_cold(fp, plan, kept)
+        del kept
+        out = self._collect(ys, [chunk for _, chunk in plan], N,
+                            True if fetch == "async" else fetch, timings)
+        self._note_pass("interleaved", N, len(plan), t0, t_plan, time.perf_counter(), timings)
+        return (lambda: out) if fetch == "async" else out
+
+    def _cached_pass(self, fp, hit, paths, N, fetch, t0):
+        timings = {}
+        if hit.get("cold"):
+            out = self._partial_cached_pass(hit, paths, N, True if fetch == "async" else fetch,
+                                            timings)
+            self._note_pass("cached_partial", N, len(hit["plan"]), t0, t0,
+                            time.perf_counter(), timings)
+            return (lambda: out) if fetch == "async" else out
+        td = time.perf_counter()
+        if hit["mode"] == "mel" and self._fuse_cached(hit["plan"]):
+            hit = self._upgrade_to_mel_fused(fp, hit)
+        if hit["mode"] == "mel":
+            ys = [self._seg_model(gkey, db, n) for gkey, _, db, n in hit["batches"]]
+        else:
+            ys = self._run_fused_parts(hit)
+        timings["dispatch_s"] = time.perf_counter() - td
+        out = self._collect(ys, [chunk for _, chunk in hit["plan"]], N, fetch, timings)
+        self._note_pass("cached", N, len(hit["plan"]), t0, t0, time.perf_counter(), timings)
         return out
+
+    def _scatter(self, all_y, chunks, N):
+        """Rows j*bs .. j*bs+len(chunk) of the pass's outputs belong to the
+        j-th batch's files."""
+        bs = self.batch_size
+        out = np.zeros((N, all_y.shape[1]), dtype=np.float32)
+        for j, chunk in enumerate(chunks):
+            out[np.asarray(chunk)] = all_y[j * bs : j * bs + len(chunk)]
+        return out
+
+    def _readback(self, all_dev):
+        """Start the pass's one device->host copy into pinned memory;
+        returns (host tensor, CUDA event of the copy or None)."""
+        if not self._cuda:
+            return all_dev, None
+        host = torch.empty(all_dev.shape, dtype=all_dev.dtype, pin_memory=True)
+        host.copy_(all_dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
+    def _collect(self, ys, chunks, N, fetch, timings):
+        t0 = time.perf_counter()
+        all_dev = torch.cat(ys) if len(ys) > 1 else ys[0]
+        if fetch == "async":
+            host, done = self._readback(all_dev)
+
+            def resolve():
+                if done is not None:
+                    done.synchronize()
+                return self._scatter(host.numpy(), chunks, N)
+
+            return resolve
+        self._sync()
+        t1 = time.perf_counter()
+        timings["block_s"] = t1 - t0
+        if not fetch:
+            return None
+        host, done = self._readback(all_dev)
+        if done is not None:
+            done.synchronize()
+        timings["fetch_s"] = time.perf_counter() - t1
+        return self._scatter(host.numpy(), chunks, N)
+
+    def _note_pass(self, mode, n_files, n_batches, t0, t_plan, t_end, timings=None):
+        """Cumulative and last-pass statistics. ``timings`` (host clocks)
+        adds scan_plan_s (header scan + plan), fill_s (filler-thread decode),
+        wait_s (main thread blocked on fills), dispatch_s (uploads and
+        kernel launches), block_s (wait for the device), fetch_s (readback),
+        and resident_batches / cold_batches on partial passes."""
+        s = self.stats
+        s["passes"] += 1
+        s["files"] += n_files
+        s["cache_hits"] += 1 if mode in ("cached", "cached_partial") else 0
+        s["last"] = {
+            "mode": mode,
+            "files": n_files,
+            "batches": n_batches,
+            "wall_s": round(t_end - t0, 4),
+            "scan_plan_s": round(t_plan - t0, 4),
+            **{k: round(v, 4) for k, v in (timings or {}).items()},
+        }
+
+    # -- warmup ------------------------------------------------------------------
+
+    def warmup(self, paths):
+        """Run each (sr, bucket, transport) shape ``paths`` need once, on
+        zero batches: builds the kernel library, prepares the constants,
+        grows the pinned staging ring to the corpus's largest batch, and, for
+        the regime the cache will take, runs the seg+model shapes of the
+        cached passes (the fused parts' k*bs rows included). Returns the
+        shapes run as (stage, gkey, rows)."""
+        paths = list(paths)
+        if not paths:
+            return []
+        ms, bs, M = self.ms, self.batch_size, self.ms.n_mels
+        plan = self._plan_for(self._metas_for(self._scan_transport(paths)))
+        gkeys = sorted({gkey for gkey, _ in plan})
+
+        def full_n(sr, bucket):
+            hop = int(sr * ms.hop_s)
+            return ((bucket - 1) * ms.seg_hop + ms.seg_length - 1) * hop
+
+        def block_bytes(bucket):  # mel block float32 + n int64, as the cache holds them
+            return bs * ms.frames_for_bucket(bucket) * M * 4 + bs * 8
+
+        cap = self._cap_bytes()
+        resident, _, _ = _resident_split(plan, lambda e: block_bytes(e[0][1]), cap)
+        resident_keys = {gkey for gkey, _ in resident}
+        if self.cache_mb <= 0 or not resident_keys:
+            seg_shapes = []
+        elif sum(block_bytes(b) for (_, b, _), _ in plan) > cap:
+            seg_shapes = [(gkey, bs) for gkey in sorted(resident_keys)]  # partial regime
+        elif self._fuse_cached(plan):
+            seg_shapes = sorted({(plan[idxs[0]][0], len(idxs) * bs)
+                                 for idxs in self._fuse_plan_chunks(plan)})
+        else:
+            seg_shapes = [(gkey, bs) for gkey in gkeys]
+
+        warmed = []
+        with torch.inference_mode(), matmul_precision(self.precision):
+            lens = {gkey: frame_geometry(ms, gkey[0], gkey[1])[4] for gkey in gkeys}
+            for kind in {gkey[2] for gkey in gkeys}:
+                longest = max(lens[g] for g in gkeys if g[2] == kind)
+                for _ in range(RING_SLOTS):
+                    self._host_buf(kind).acquire(longest)
+                for slot in self._rings[kind]:
+                    slot.release()
+            for gkey in gkeys:
+                slot = self._host_buf(gkey[2])
+                buf, n = slot.acquire(lens[gkey])
+                buf.fill(0)
+                n.fill(full_n(gkey[0], gkey[1]))
+                audio_d, n_d = self._upload(slot, lens[gkey])
+                self._seg_model(gkey, self._mel(gkey, audio_d, n_d), n_d)
+                warmed.append(("cold", gkey, bs))
+            for gkey, rows in seg_shapes:
+                db = torch.zeros((rows, ms.frames_for_bucket(gkey[1]), M), device=self.device)
+                n = torch.full((rows,), full_n(gkey[0], gkey[1]), dtype=torch.int64,
+                               device=self.device)
+                self._seg_model(gkey, db, n)
+                warmed.append(("seg", gkey, rows))
+            self._sync()
+        return warmed

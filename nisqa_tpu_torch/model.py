@@ -96,6 +96,10 @@ class NisqaTorch:
             num_workers=int(args.get("tr_num_workers") or 8),
             precision=args.get("precision") or "default",
             fe_precision=args.get("fe_precision"),
+            # absent/null/true: cached passes run fused parts; false: per batch
+            fuse_pass=args.get("fuse_pass"),
+            # null keeps the default; an explicit 0 turns the cache off
+            cache_mb=512 if args.get("serving_cache_mb") is None else args["serving_cache_mb"],
         )
 
     def predict(self) -> list[dict]:

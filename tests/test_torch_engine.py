@@ -3,7 +3,8 @@
 The same corpus and checkpoints go through ``nisqa_tpu`` and
 ``nisqa_tpu_torch``: the engines' ``predict_paths``, the CLIs'
 ``NISQA_results.csv``, the reference's error paths, and the port's import
-rules (no jax, pandas or yaml; no silent CPU fallback).
+rules (nothing of jax, pandas, yaml or ``nisqa_tpu``; no silent CPU
+fallback).
 """
 
 import csv
@@ -166,22 +167,20 @@ def test_no_silent_cpu_fallback(corpus, monkeypatch):
 
 
 def test_port_import_leaves_jax_unloaded():
-    """jax is installed here: importing every port module must still not load
-    it (nisqa_tpu's package init would, without the port's opt-out)."""
+    """jax is installed here: importing every port module must load no jax,
+    pandas or yaml module and no module of the JAX package ``nisqa_tpu``."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import nisqa_tpu_torch\n"
         "for m in pkgutil.walk_packages(nisqa_tpu_torch.__path__, 'nisqa_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import nisqa_tpu.audio.wav, nisqa_tpu.data.native, nisqa_tpu.compat.model_args\n"
-        "import os\n"
-        "assert 'NISQA_TPU_NO_CACHE' not in os.environ\n"
-        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'yaml')]\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'pandas', 'yaml', 'nisqa_tpu')]\n"
         "assert not loaded, loaded\n"
+        "assert 'nisqa_tpu_torch.data.pipeline' in sys.modules\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "NISQA_TPU_NO_CACHE"}
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       env={**env, "PYTHONPATH": REPO}, timeout=300)
+                       env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
 
 
@@ -192,9 +191,8 @@ def test_port_never_imports_jax_pandas_or_yaml():
     for path in sources:
         with open(path) as f:
             assert not pattern.search(f.read()), path
-    # the JAX-importing modules of nisqa_tpu are off limits too
-    banned = re.compile(r"^\s*(import|from)\s+nisqa_tpu\."
-                        r"(model|models|data\.pipeline|data\.dataset|compat\.torch_ckpt)\b", re.M)
-    for path in sources:
+    # nothing of the JAX package either: only the prefix nisqa_tpu_torch
+    banned = re.compile(r"^\s*(import|from)\s+nisqa_tpu(\.|\s|$)", re.M)
+    for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as f:
             assert not banned.search(f.read()), path

@@ -16,10 +16,12 @@ never prints its last line):
      card at the main path's shapes (48 kHz with N = 32 x 5,211 and
      32 x 663 frame rows, the largest and smallest buckets; a ragged N of 43
      that splits K across blocks; 16 kHz with K = 2,049; 44.1 kHz with an
-     882-sample span), both front-end modes, with CUDA-event times and
-     TFLOP/s of each and a bitwise repeat;
-  4. model: the released NISQA_DIM weights (``tests/goldens/g2_dim.npz``)
-     against their torch golden at "highest" precision;
+     882-sample span) and the TTS path's (48 kHz at fmax 8 kHz, K = 768,
+     N = 8 x 6,014 and a ragged 1,001), both front-end modes, with
+     CUDA-event times, TFLOP/s and the bound of each and a bitwise repeat;
+  4. models: the released NISQA_DIM and NISQA-TTS weights
+     (``tests/goldens/g2_dim.npz``, ``g3_tts.npz``) against their torch
+     goldens at "highest" precision;
   5. main path: ``python -m nisqa_tpu_torch.run_predict --mode predict_dir
      --bs 32`` (through its ``main``) over a seeded corpus of 64 48 kHz and
      4 16 kHz WAVs with a reference-format ``.tar`` of those weights; counts
@@ -35,8 +37,23 @@ never prints its last line):
      result within 1e-5 of the cold pass; audio-s/s (median of 5 warm
      passes), ``stats["last"]`` and the device idle share (torch.profiler)
      of each regime;
-  7. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
-     of every port module loads no jax, pandas, yaml or ``nisqa_tpu``.
+  7. TTS path: ``run_predict --mode predict_dir --bs 8`` with the released
+     NISQA-TTS weights at the TTS checkpoint geometry (seg_hop 1, up to
+     6,000 segments, fmax 8 kHz) over 16 WAVs of 10-40 s at 48 kHz and 2 at
+     16 kHz: one kernel launch per batch, "highest" precision through the
+     LSTM upgrade, warm cold and cached passes within 1e-5 of the first and
+     within 1e-3 of the twin front-end, audio-s/s, the profiler's top device
+     kernels with the cuDNN LSTM's share, and the idle share;
+  8. no sync: one forward of the TTS model at the largest bucket under
+     ``torch.cuda.set_sync_debug_mode("error")``, returning while the device
+     still runs;
+  9. predict_csv + evaluate: ``run_predict --mode predict_csv --bs 32`` over
+     a labelled CSV of phase 5's corpus in a shuffled order, then
+     ``NisqaTorch.evaluate`` with a condition CSV: columns and row order,
+     one launch per batch, predictions equal to phase 5's, finite metrics;
+  10. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
+     of every port module loads no jax, pandas, yaml, matplotlib or
+     ``nisqa_tpu``.
 
 The last two lines are a JSON record of the kernel and
 ``{"ok": true, "device": {...}}``.
@@ -65,7 +82,10 @@ YAML_GEOMETRY = {
     "ms_win_length": 0.02, "ms_n_mels": 48, "ms_seg_length": 15,
     "ms_seg_hop_length": 4, "ms_max_segments": 1300, "ms_channel": None,
 }
+# the released NISQA-TTS checkpoint's front-end (nisqa_tts.tar args; tools/bench_tts.py)
+TTS_GEOMETRY = {**YAML_GEOMETRY, "ms_fmax": 8000, "ms_seg_hop_length": 1, "ms_max_segments": 6000}
 BATCH = 32
+TTS_BATCH = 8
 EXACT_BOUND, FAST_BOUND = 1e-5, 1e-4  # kernel vs twin, relative to max|twin|
 GOLDEN_BOUND = 2e-4                   # model vs torch golden, absolute
 PASS_BOUND = 1e-3                     # kernel vs twin front-end predictions at "highest"
@@ -112,21 +132,27 @@ def hgmma_count(lib_path: str) -> int:
 
 
 def kernel_vs_twin(seed: int, reps: int, card: str):
-    """Phase 3. Returns (rows of results, the main shape's row by mode)."""
+    """Phase 3. Returns (rows of results, the main shape's row by mode, the
+    TTS shape's row by mode)."""
     from nisqa_tpu_torch.data.pipeline import MsConfig, front_end_consts, matmul_precision
     from nisqa_tpu_torch.ops.dft_mel import (dft_mel_reference, fused_dft_mel, plan_grid,
                                              prepare_consts)
 
-    ms = MsConfig(YAML_GEOMETRY)
+    ms, tts = MsConfig(YAML_GEOMETRY), MsConfig(TTS_GEOMETRY)
     n_main = BATCH * ms.frames_for_bucket(ms.max_segments)  # 32 x 5,211 = 166,752
     n_small = BATCH * ms.frames_for_bucket(ms.buckets()[0])  # 32 x 663 = 21,216
+    n_tts = TTS_BATCH * tts.frames_for_bucket(tts.max_segments)  # 8 x 6,014 = 48,112
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(seed)
     results = []
     # the main path's shapes, then 44.1 kHz: a 882-sample span whose rows the
-    # wrapper re-pads to the 16-byte stride the TMA wants
-    for sr, n in ((48000, n_main), (48000, n_small), (48000, 43), (16000, n_main), (44100, 4000)):
-        c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(ms, sr, "i16").items()}
+    # wrapper re-pads to the 16-byte stride the TMA wants; then the TTS
+    # path's K = 768 at its largest bucket and at a ragged N that splits K
+    cases = [("yaml", ms, 48000, n_main), ("yaml", ms, 48000, n_small), ("yaml", ms, 48000, 43),
+             ("yaml", ms, 16000, n_main), ("yaml", ms, 44100, 4000),
+             ("tts", tts, 48000, n_tts), ("tts", tts, 48000, 1001)]
+    for geometry, g_ms, sr, n in cases:
+        c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(g_ms, sr, "i16").items()}
         span, k = c["w_re"].shape
         m = c["fb_t"].shape[1]
         frames = np.clip(np.round(rng.standard_normal((n, span)) * 3000), -32768, 32767)
@@ -158,7 +184,7 @@ def kernel_vs_twin(seed: int, reps: int, card: str):
             io_bytes = n * span * (2 if bf16 else 4) + (2 * span * k + k * m + n * m) * 4
             bound_ms = 1e3 * max(ops_s, io_bytes / HBM_RATE)
             row_tiles, splits, _ = plan_grid(n, n_tiles, sms)
-            row = {"sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
+            row = {"geometry": geometry, "sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
                    "grid": [row_tiles, splits], "max_abs_err": abs_err, "rel_err": rel_err,
                    "bound": bound, "repeat_bitwise_equal": repeat_equal,
                    "kernel_ms": kernel_ms, "twin_ms": twin_ms,
@@ -174,15 +200,17 @@ def kernel_vs_twin(seed: int, reps: int, card: str):
         del frames, c
         torch.cuda.empty_cache()
     main = {r["mode"]: r for r in results if r["sr"] == 48000 and r["N"] == n_main}
-    return results, main
+    tts_main = {r["mode"]: r for r in results if r["N"] == n_tts}
+    return results, main, tts_main
 
 
-def model_golden():
-    """Phase 4: released NISQA_DIM weights vs the torch golden on the card."""
+def model_golden(name: str):
+    """Phase 4: released weights (a golden's ``sd::*``) vs the torch golden
+    on the card. Returns the golden's (meta, state dict)."""
     from nisqa_tpu_torch.data.pipeline import matmul_precision
     from nisqa_tpu_torch.models.nisqa import build_model
 
-    z = np.load(os.path.join(REPO, "tests", "goldens", "g2_dim.npz"), allow_pickle=False)
+    z = np.load(os.path.join(REPO, "tests", "goldens", f"{name}.npz"), allow_pickle=False)
     meta = json.loads(str(z["meta"]))
     sd = {k[4:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd::")}
     model = build_model(meta["model"], meta["model_args"])
@@ -191,10 +219,19 @@ def model_golden():
     with torch.inference_mode(), matmul_precision("highest"):
         y = model(torch.from_numpy(z["x"][:, :, 0]).cuda(), torch.from_numpy(z["n_wins"]).cuda())
     err = float(np.abs(y.cpu().numpy() - z["y"]).max())
-    print(f"model g2_dim (NISQA_DIM) vs torch golden at 'highest': max_abs_err={err} "
+    print(f"model {name} ({meta['model']}) vs torch golden at 'highest': max_abs_err={err} "
           f"bound={GOLDEN_BOUND}", flush=True)
-    check(y.shape == z["y"].shape and err <= GOLDEN_BOUND, f"g2_dim golden off by {err}")
+    check(y.shape == z["y"].shape and err <= GOLDEN_BOUND, f"{name} golden off by {err}")
     return meta, sd
+
+
+def write_pcm16(path: str, y, sr: int):
+    pcm = np.clip(np.round(y * 32767.0), -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
 
 
 def write_corpus(out_dir: str, seed: int):
@@ -208,12 +245,24 @@ def write_corpus(out_dir: str, seed: int):
         f0 = rng.uniform(100, 300)
         y = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 3.1 * f0 * t)
              + 0.05 * rng.standard_normal(n))
-        pcm = np.clip(np.round(y * 32767.0), -32768, 32767).astype("<i2")
-        with wave.open(os.path.join(out_dir, f"smoke_{sr // 1000}k_{i:03d}.wav"), "wb") as w:
-            w.setnchannels(1)
-            w.setsampwidth(2)
-            w.setframerate(sr)
-            w.writeframes(pcm.tobytes())
+        write_pcm16(os.path.join(out_dir, f"smoke_{sr // 1000}k_{i:03d}.wav"), y, sr)
+        total += n / sr
+    return total
+
+
+def write_tts_corpus(out_dir: str, seed: int):
+    """16 PCM16 WAVs at 48 kHz, 10-40 s log-uniform with an amplitude-
+    modulated tone (``tools/bench_tts.py::make_corpus``'s recipe), plus 2
+    at 16 kHz. Returns the total audio seconds."""
+    rng = np.random.default_rng(seed)
+    total = 0.0
+    for i, sr in enumerate([48000] * 16 + [16000] * 2):
+        n = int(sr * float(np.exp(rng.uniform(np.log(10.0), np.log(40.0)))))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(90, 250)
+        y = (0.3 * np.sin(2 * np.pi * f0 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 1.7 * t))
+             + 0.05 * rng.standard_normal(n))
+        write_pcm16(os.path.join(out_dir, f"tts_{sr // 1000}k_{i:02d}.wav"), y, sr)
         total += n / sr
     return total
 
@@ -232,7 +281,8 @@ def make_corpus(tmp: str, meta, sd, seed: int):
 
 
 def main_path(tar: str, paths, audio_s: float, card: str):
-    """Phase 5. Returns the kernel's launch count in the predict_dir run."""
+    """Phase 5. Returns the kernel's launch count in the predict_dir run and
+    the run's predictions (rows in ``paths`` order)."""
     from nisqa_tpu_torch import run_predict
     from nisqa_tpu_torch.compat.checkpoint import load_model_from_tar
     from nisqa_tpu_torch.data.pipeline import InferenceEngine, MsConfig, native_decode_available
@@ -245,8 +295,8 @@ def main_path(tar: str, paths, audio_s: float, card: str):
 
         fused_dft_mel.LAUNCHES = fused_dft_mel.PREPARATIONS = 0
         t0 = time.perf_counter()
-        rows = run_predict.main(["--mode", "predict_dir", "--pretrained_model", tar,
-                                 "--data_dir", corpus, "--output_dir", out_dir, "--bs", str(BATCH)])
+        runner = run_predict.main(["--mode", "predict_dir", "--pretrained_model", tar,
+                                   "--data_dir", corpus, "--output_dir", out_dir, "--bs", str(BATCH)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, preparations = fused_dft_mel.LAUNCHES, fused_dft_mel.PREPARATIONS
@@ -254,7 +304,7 @@ def main_path(tar: str, paths, audio_s: float, card: str):
         with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
             table = list(csv.DictReader(f))
     pred_cols = ["mos_pred", "noi_pred", "dis_pred", "col_pred", "loud_pred"]
-    check(len(table) == len(paths) == 68 and len(rows) == 68,
+    check(len(table) == len(paths) == 68 and len(runner.ds_val.df) == 68,
           f"NISQA_results.csv has {len(table)} rows for {len(paths)} files")
     check(list(table[0]) == ["deg", *pred_cols, "model"], f"columns {list(table[0])}")
     check([r["deg"] for r in table] == [os.path.basename(p) for p in paths], "row order")
@@ -304,15 +354,16 @@ def main_path(tar: str, paths, audio_s: float, card: str):
               f"kernel and twin front-ends disagree by {diff} at {precision!r}")
     print("default-precision CLI vs 'highest': max_abs_diff="
           f"{float(np.abs(y_cli - y['highest', 'kernel']).max())}", flush=True)
-    return launches
+    return launches, y_cli
 
 
 def idle_share(fn):
-    """(device busy s, wall s, idle share) of one call of ``fn``: the union
-    of the device activity intervals in a ``torch.profiler`` trace over the
-    host wall time of the call (which ends in a synchronise); prints the
-    call's ten largest device items. Returns None for the busy time and the
-    share when the profiler records no device activity."""
+    """(device busy s, wall s, idle share, {device item: ms}) of one call of
+    ``fn``: the union of the device activity intervals in a
+    ``torch.profiler`` trace over the host wall time of the call (which ends
+    in a synchronise); prints the call's ten largest device items. Returns
+    None for the busy time and the share when the profiler records no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -325,7 +376,7 @@ def idle_share(fn):
     device = [e for e in prof.events()
               if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
     if not device:
-        return None, wall, None
+        return None, wall, None, {}
     by_name = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -341,7 +392,7 @@ def idle_share(fn):
         else:
             cur_e = max(cur_e, e)
     busy = (busy_us + cur_e - cur_s) / 1e6
-    return busy, wall, max(0.0, 1.0 - busy / wall)
+    return busy, wall, max(0.0, 1.0 - busy / wall), by_name
 
 
 def serving(tar: str, paths, audio_s: float, card: str):
@@ -366,7 +417,7 @@ def serving(tar: str, paths, audio_s: float, card: str):
         if y_ref is not None:
             diff = float(np.abs(y - y_ref).max())
             check(diff <= SERVE_BOUND, f"{regime}: warm passes off by {diff} from the cold pass")
-        busy, wall, idle = idle_share(fn) if profile_it else (None, None, None)
+        busy, wall, idle, _ = idle_share(fn) if profile_it else (None, None, None, None)
         idle_txt = ("not measured" if idle is None else
                     f"{idle:.4f} (device busy {busy:.4f} s of {wall:.4f} s, torch.profiler)")
         print(f"serving {regime}: {passes * audio_s / dt:.1f} audio-s/s (median {dt:.4f} s of "
@@ -454,10 +505,204 @@ def serving(tar: str, paths, audio_s: float, card: str):
     return launches
 
 
+def tts_path(tmp: str, meta, sd, seed: int, card: str):
+    """Phase 7: the released NISQA-TTS weights at their checkpoint geometry
+    through ``run_predict --mode predict_dir --bs 8``, then warm cold and
+    cached passes. Returns (the kernel's launches in the CLI run, the
+    runner's model)."""
+    from nisqa_tpu_torch import run_predict
+    from nisqa_tpu_torch.data.pipeline import InferenceEngine
+    from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
+
+    corpus, out_dir = os.path.join(tmp, "tts_wavs"), os.path.join(tmp, "tts_out")
+    os.makedirs(corpus)
+    os.makedirs(out_dir)
+    audio_s = write_tts_corpus(corpus, seed)
+    paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
+    tar = os.path.join(tmp, "nisqa_tts.tar")
+    args = {**meta["model_args"], **TTS_GEOMETRY, "model": "NISQA", "name": "NISQA_TTS"}
+    torch.save({"args": args, "model_state_dict": sd, "model_name": "NISQA"}, tar)
+
+    fused_dft_mel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    runner = run_predict.main(["--mode", "predict_dir", "--pretrained_model", tar, "--data_dir",
+                               corpus, "--output_dir", out_dir, "--bs", str(TTS_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_dft_mel.LAUNCHES
+    engine = runner.engine
+    with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
+        table = list(csv.DictReader(f))
+    check(len(table) == len(paths) == 18, f"NISQA_results.csv has {len(table)} rows for 18 files")
+    check(list(table[0]) == ["deg", "mos_pred", "model"], f"columns {list(table[0])}")
+    check([r["deg"] for r in table] == [os.path.basename(p) for p in paths], "row order")
+    y_first = np.array([[float(r["mos_pred"])] for r in table])
+    check(bool(np.isfinite(y_first).all()), "non-finite predictions in NISQA_results.csv")
+    check(engine.precision == "highest" and engine.fe_precision == "exact",
+          f"the TTS engine runs at {engine.precision!r} / {engine.fe_precision!r}, "
+          "not 'highest' / 'exact' (the LSTM upgrade)")
+    plan = engine.plan(paths)
+    print(f"tts predict_dir: {len(table)} files, {len(plan)} batches "
+          f"{[(g, len(c)) for g, c in plan]}, precision {engine.precision}, fused_dft_mel "
+          f"launches={launches}; {audio_s:.1f} audio-s in {wall:.3f} s wall (checkpoint load "
+          f"and first-call set-up included) = {audio_s / wall:.1f} audio-s/s on {card}", flush=True)
+    check(launches == len(plan), f"fused_dft_mel launched {launches}x for {len(plan)} batches")
+
+    # warm passes: cold (cache_mb=0) with the kernel and with the twin, and
+    # cached passes of the CLI's engine, which holds the corpus's mels
+    cold = InferenceEngine(runner.model, runner.ms, "cuda", batch_size=TTS_BATCH, cache_mb=0)
+    twin = InferenceEngine(runner.model, runner.ms, "cuda", batch_size=TTS_BATCH, cache_mb=0,
+                           dft_mel=dft_mel_reference)
+    engines = {"cold": cold, "twin": twin, "cached": engine}
+    for name in ("cold", "twin"):
+        engines[name].predict_paths(paths)  # untimed: constant preparation, cuDNN set-up
+    y, secs, launched = {}, {k: [] for k in engines}, {k: 0 for k in engines}
+    for r in range(WARM_REPS):
+        for name in list(engines)[:: 1 if r % 2 == 0 else -1]:
+            before = fused_dft_mel.LAUNCHES
+            t0 = time.perf_counter()
+            y[name] = engines[name].predict_paths(paths)  # ends in a device readback
+            secs[name].append(time.perf_counter() - t0)
+            launched[name] += fused_dft_mel.LAUNCHES - before
+    check(engine.stats["last"]["mode"] == "cached", f"CLI engine ran {engine.stats['last']['mode']}")
+    check(launched == {"cold": WARM_REPS * len(plan), "twin": 0, "cached": 0},
+          f"warm-pass launches {launched}")
+    for name in engines:
+        dt = float(np.median(secs[name]))
+        print(f"tts warm pass {name}: {audio_s / dt:.1f} audio-s/s (median {dt:.4f} s of "
+              f"{[round(t, 4) for t in secs[name]]}) on {card}", flush=True)
+    for name in ("cold", "cached"):
+        diff = float(np.abs(y[name] - y_first).max())
+        print(f"tts {name} vs the CLI pass: max_abs_diff={diff} bound={SERVE_BOUND}", flush=True)
+        check(diff <= SERVE_BOUND, f"tts {name} pass off by {diff} from the CLI pass")
+    diff = float(np.abs(y["cold"] - y["twin"]).max())
+    print(f"tts kernel vs twin front-end at 'highest': max_abs_diff={diff} bound={PASS_BOUND}",
+          flush=True)
+    check(diff <= PASS_BOUND, f"tts kernel and twin front-ends disagree by {diff}")
+
+    for name in ("cold", "cached"):
+        print(f"tts profiled {name} pass:", flush=True)
+        busy, wall, idle, by_name = idle_share(lambda: engines[name].predict_paths(paths))
+        if busy is None:
+            print("  idle share not measured: the profiler recorded no device activity", flush=True)
+            continue
+        lstm_ms = sum(ms for k, ms in by_name.items() if "LSTM" in k or "RNN" in k)
+        print(f"  idle share {idle:.4f} (device busy {busy:.4f} s of {wall:.4f} s); cuDNN LSTM "
+              f"kernels {lstm_ms:.3f} ms = {lstm_ms / 1e3 / busy:.4f} of device busy time; "
+              f"stats.last {json.dumps(engines[name].stats['last'])} on {card}", flush=True)
+    return launches, runner.model
+
+
+def lstm_takes_no_sync(model, card: str):
+    """Phase 8: one forward of the TTS model over device inputs at the
+    largest bucket under ``set_sync_debug_mode("error")`` (any synchronising
+    call raises); the call returns while the device is still running it."""
+    from nisqa_tpu_torch.data.pipeline import MsConfig, matmul_precision
+
+    t = MsConfig(TTS_GEOMETRY).max_segments
+    g = torch.Generator(device="cuda").manual_seed(0)
+    segs = torch.randn((TTS_BATCH, t, 48, 15), device="cuda", generator=g) * 10 - 40
+    n_wins = torch.tensor([t, t - 1, 4500, 3000, 1500, 750, 100, 1], device="cuda")
+    with torch.inference_mode(), matmul_precision("highest"):
+        model(segs, n_wins)  # warm: cuDNN set-up
+    torch.cuda.synchronize()
+    start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode(), matmul_precision("highest"):
+            t0 = time.perf_counter()
+            start.record()
+            y = model(segs, n_wins)
+            done.record()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            running = not done.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(done)
+    print(f"no sync: TTS forward at T={t}, bs {TTS_BATCH} under sync debug mode 'error': host "
+          f"returned after {host_ms:.3f} ms, device still running: {running}, device time "
+          f"{device_ms:.3f} ms on {card}", flush=True)
+    check(running, "the forward returned after the device finished: it synchronised")
+    check(bool(torch.isfinite(y).all()) and y.shape == (TTS_BATCH, 1), "TTS forward output")
+
+
+def csv_and_evaluate(tmp: str, tar: str, paths, y_dir, seed: int, card: str):
+    """Phase 9: ``run_predict --mode predict_csv --bs 32`` over a labelled
+    CSV of phase 5's corpus (rows shuffled), then ``NisqaTorch.evaluate``
+    with a condition CSV. Returns {pass: kernel launches}."""
+    from nisqa_tpu_torch import run_predict
+    from nisqa_tpu_torch.model import NisqaTorch
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+
+    corpus = os.path.dirname(paths[0])
+    rng = np.random.default_rng(seed)
+    dims = ["mos", "noi", "dis", "col", "loud"]
+    order = rng.permutation(len(paths))
+    names = [os.path.basename(paths[i]) for i in order]
+    dbs = ["db_a" if i % 2 else "db_b" for i in order]
+    cons = [f"c{i // 2 % 6}" for i in order]  # every db holds all 6 conditions
+    with open(os.path.join(corpus, "labels.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["filepath_deg", "db", "con", *dims])
+        for row in zip(names, dbs, cons, *(rng.uniform(1, 5, len(paths)).round(2) for _ in dims)):
+            w.writerow(row)
+    with open(os.path.join(corpus, "labels_con.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["db", "con", *dims, *(f"{d}_ci" for d in dims)])
+        for db in ("db_a", "db_b"):
+            for c in range(6):
+                w.writerow([db, f"c{c}", *rng.uniform(1, 5, 5).round(3), *rng.uniform(0.05, 0.3, 5)])
+
+    launches = {}
+    out_dir = os.path.join(tmp, "csv_out")
+    os.makedirs(out_dir)
+    fused_dft_mel.LAUNCHES = 0
+    runner = run_predict.main(["--mode", "predict_csv", "--pretrained_model", tar, "--data_dir",
+                               corpus, "--csv_file", "labels.csv", "--csv_deg", "filepath_deg",
+                               "--output_dir", out_dir, "--bs", str(BATCH)])
+    torch.cuda.synchronize()
+    launches["predict_csv"] = fused_dft_mel.LAUNCHES
+    n_batches = len(runner.engine.plan(runner.ds_val.paths()))
+    with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
+        table = list(csv.DictReader(f))
+    preds = [f"{d}_pred" for d in dims]
+    check(list(table[0]) == ["filepath_deg", "db", "con", *dims, *preds, "model"],
+          f"predict_csv columns {list(table[0])}")
+    check([r["filepath_deg"] for r in table] == names, "predict_csv row order")
+    check(launches["predict_csv"] == n_batches,
+          f"predict_csv launched the kernel {launches['predict_csv']}x for {n_batches} batches")
+    y_csv = np.array([[float(r[c]) for c in preds] for r in table])
+    diff = float(np.abs(y_csv - y_dir[order]).max())
+    print(f"predict_csv: {len(table)} rows in the CSV's order, {n_batches} batches, "
+          f"fused_dft_mel launches={launches['predict_csv']}; max_abs_diff vs predict_dir="
+          f"{diff} bound={SERVE_BOUND}", flush=True)
+    check(diff <= SERVE_BOUND, f"predict_csv off by {diff} from predict_dir")
+
+    fused_dft_mel.LAUNCHES = 0
+    nisqa = NisqaTorch({"mode": "predict_csv", "pretrained_model": tar, "data_dir": corpus,
+                        "output_dir": out_dir, "csv_file": "labels.csv", "csv_con": "labels_con.csv",
+                        "csv_deg": "filepath_deg", "tr_bs_val": BATCH, "tr_num_workers": 8})
+    nisqa.predict()
+    nisqa.evaluate(mapping="first_order", do_print=True, do_plot=False)
+    torch.cuda.synchronize()
+    launches["predict_csv_evaluate"] = fused_dft_mel.LAUNCHES
+    bad = {k: v for k, v in nisqa.r.items() if not np.isfinite(v)}
+    print(f"evaluate: {len(nisqa.r)} metrics, r_p_mean_con={nisqa.r['r_p_mean_con']:.6f}, "
+          f"rmse_all={nisqa.r['rmse_all']:.6f}; fused_dft_mel launches={launches['predict_csv_evaluate']}"
+          f" on {card}", flush=True)
+    check(len(nisqa.r) == 45 and not bad, f"evaluate gave non-finite metrics {bad}")
+    check(launches["predict_csv_evaluate"] == n_batches, "evaluate run's kernel launches")
+    check(float(np.abs(np.stack([nisqa.ds_val.df[c] for c in preds], 1) - y_csv).max()) <= SERVE_BOUND,
+          "the evaluate run's predictions differ from the CLI's")
+    return launches
+
+
 def import_check():
     """The port loaded nothing of JAX or of the JAX package in this run, and
     importing it and all its submodules in a fresh process loads no jax,
-    pandas, yaml or ``nisqa_tpu`` module (the card's machine has them all)."""
+    pandas, yaml, matplotlib or ``nisqa_tpu`` module (the card's machine has
+    them all; ``eval/report.py`` imports matplotlib only to plot)."""
     banned = ("jax", "jaxlib", "nisqa_tpu")
     here = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     check(not here, f"this run imported JAX code: {here[:10]}")
@@ -466,12 +711,12 @@ def import_check():
             "for m in pkgutil.walk_packages(nisqa_tpu_torch.__path__, 'nisqa_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml')))\n")
+            "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml', 'matplotlib')))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
                        env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
     check(r.returncode == 0, f"importing the port failed: {r.stderr[-2000:]}")
     check(r.stdout.strip() == "[]", f"importing the port loaded {r.stdout.strip()}")
-    print("imports: no jax, jaxlib, nisqa_tpu, pandas or yaml module loaded by the port",
+    print("imports: no jax, jaxlib, nisqa_tpu, pandas, yaml or matplotlib module loaded by the port",
           flush=True)
 
 
@@ -502,13 +747,18 @@ def main(argv=None):
     print(f"SASS: {n_hgmma} HGMMA (wgmma) instructions", flush=True)
     check(n_hgmma > 0, "no HGMMA instruction in the kernel library: the tensor cores are unused")
 
-    # 3-6
-    results, main = kernel_vs_twin(opts.seed, opts.reps, card)
-    meta, sd = model_golden()
+    # 3-9
+    results, main, tts = kernel_vs_twin(opts.seed, opts.reps, card)
+    meta, sd = model_golden("g2_dim")
+    meta_tts, sd_tts = model_golden("g3_tts")
     with tempfile.TemporaryDirectory(prefix="nisqa_smoke_") as tmp:
         tar, paths, audio_s = make_corpus(tmp, meta, sd, opts.seed)
-        launches = main_path(tar, paths, audio_s, card)
+        launches, y_dir = main_path(tar, paths, audio_s, card)
         serving_launches = serving(tar, paths, audio_s, card)
+        tts_launches, tts_model = tts_path(tmp, meta_tts, sd_tts, opts.seed, card)
+        lstm_takes_no_sync(tts_model, card)
+        del tts_model
+        csv_launches = csv_and_evaluate(tmp, tar, paths, y_dir, opts.seed, card)
     import_check()
 
     fast, exact = main["fast"], main["exact"]
@@ -527,7 +777,17 @@ def main(argv=None):
         "exact_ms": exact["kernel_ms"],
         "exact_plain_ms": exact["twin_ms"],
         "exact_bound_ms": exact["bound_ms"],
-        "launches_by_pass": {"predict_dir": launches, **serving_launches},
+        "tts_shape": {k: tts["fast"][k] for k in ("sr", "N", "span", "K", "M")},
+        "tts_ms": tts["fast"]["kernel_ms"],
+        "tts_plain_ms": tts["fast"]["twin_ms"],
+        "tts_bound_ms": tts["fast"]["bound_ms"],
+        "tts_bound_by": tts["fast"]["bound_by"],
+        "tts_exact_ms": tts["exact"]["kernel_ms"],
+        "tts_exact_plain_ms": tts["exact"]["twin_ms"],
+        "tts_exact_bound_ms": tts["exact"]["bound_ms"],
+        "tts_exact_bound_by": tts["exact"]["bound_by"],
+        "launches_by_pass": {"predict_dir": launches, **serving_launches,
+                             "tts_predict_dir": tts_launches, **csv_launches},
     }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)

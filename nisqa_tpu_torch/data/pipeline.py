@@ -245,7 +245,10 @@ class _Slot:
 class InferenceEngine:
     """Batched predictor over audio paths for one device.
 
-    ``precision``: 'default' (TF32 allowed) or 'highest' (float32).
+    ``precision``: 'default' (TF32 allowed) or 'highest' (float32); None
+    means 'default'. Models with an LSTM time dependency (``td`` or
+    ``td_2``) upgrade None and 'default' to 'highest', as the JAX engine
+    does: the recurrence over thousands of steps amplifies TF32 rounding.
     ``fe_precision``: 'exact' (float32 DFT) or 'fast' (bf16 DFT operands,
     float32 accumulation); None follows ``precision`` like the JAX engine
     ('exact' under 'highest', else 'fast'). ``dft_mel`` is the DFT->mel
@@ -264,6 +267,10 @@ class InferenceEngine:
         self.ms = ms
         self.batch_size = int(batch_size)
         self.num_workers = max(1, int(num_workers))
+        if precision in (None, "default") and "lstm" in (
+            model.cfg.get("td") or "", model.cfg.get("td_2") or ""
+        ):
+            precision = "highest"
         self.precision = precision or "default"
         if self.precision not in ("default", "highest"):
             raise ValueError(f"precision must be 'default' or 'highest', got {precision!r}")

@@ -9,7 +9,9 @@ Counterpart of ``nisqa_tpu/models/nisqa.py``:
 The module tree follows the reference's state-dict names (``cnn.model.*``,
 ``time_dependency.model.*``, ``time_dependency_2``, ``pool.model.*`` /
 ``pool_layers.{i}.model.*``), so released ``.tar`` checkpoints load with
-``strict=True`` and no key converter. NISQA_DE is not ported yet.
+``strict=True`` and no key converter. Every framewise, time-dependency and
+pooling option of the single-ended models is here; NISQA_DE is not ported
+yet (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -77,5 +79,5 @@ def build_model(model_name: str, model_args: dict) -> nn.Module:
     if model_name == "NISQA_DIM":
         return NISQA_DIM(model_args)
     if model_name == "NISQA_DE":
-        raise NotImplementedError("NISQA_DE is not ported yet (ROADMAP.md Queue 1)")
+        raise NotImplementedError("NISQA_DE is not ported yet (ROADMAP.md Queue 1 item 5)")
     raise NotImplementedError(f"Model not available: {model_name}")

@@ -1,9 +1,9 @@
-"""Attention pooling heads over time: PoolAtt and PoolAttFF.
+"""Pooling heads over time: attention (PoolAtt, PoolAttFF), avg, max,
+last step and bidirectional last step.
 
-Counterpart of ``nisqa_tpu/models/pooling.py`` (kinds ``att`` and
-``att_ff``): a masked softmax over T weights the frames, then a linear
-layer maps the pooled vector to the output. The other pool kinds (avg, max,
-last_step, last_step_bi) are not ported yet and raise.
+Counterpart of ``nisqa_tpu/models/pooling.py``: masked reductions over the
+valid frames of (B, T, D), then a linear layer to the output. The frame
+picks gather on the device with the lengths there (no host sync).
 """
 
 from __future__ import annotations
@@ -43,17 +43,50 @@ class PoolAttFF(nn.Module):
         return self.linear3(_attend(score, x, n_wins))
 
 
+def _frame(x, idx):
+    """x (B, T, D), idx (B,) -> x[b, idx[b]] (B, D)."""
+    return x.gather(1, idx[:, None, None].expand(-1, 1, x.shape[-1]))[:, 0]
+
+
+class PoolReduce(nn.Module):
+    """``avg``, ``max``, ``last_step`` or ``last_step_bi`` over the valid
+    frames, then ``linear``. ``last_step_bi`` reads a biLSTM output laid
+    out [forward, backward]: the forward half at t = n_wins - 1 and the
+    backward half at t = 0."""
+
+    def __init__(self, d_input: int, output_size: int, kind: str):
+        super().__init__()
+        self.kind = kind
+        self.linear = nn.Linear(d_input, output_size)
+
+    def forward(self, x, n_wins):
+        if self.kind == "avg":
+            valid = length_mask(n_wins, x.shape[1])[..., None]
+            pooled = torch.where(valid, x, 0.0).sum(dim=1) / n_wins[:, None].to(x.dtype)
+        elif self.kind == "max":
+            valid = length_mask(n_wins, x.shape[1])[..., None]
+            pooled = torch.where(valid, x, -torch.inf).amax(dim=1)
+        elif self.kind == "last_step":
+            pooled = _frame(x, n_wins - 1)
+        else:
+            h = x.shape[-1] // 2
+            pooled = torch.cat([_frame(x[..., :h], n_wins - 1), x[:, 0, h:]], dim=1)
+        return self.linear(pooled)
+
+
 class Pooling(nn.Module):
-    """Dispatcher holding ``.model``: PoolAttFF when ``att_h`` is set, else PoolAtt."""
+    """Dispatcher holding ``.model``: for ``att``, PoolAttFF when ``att_h``
+    is set, else PoolAtt; :class:`PoolReduce` for the other kinds."""
 
     def __init__(self, d_input: int, output_size: int, pool: str, att_h=None):
         super().__init__()
-        if pool != "att":
-            raise NotImplementedError(f"Pool option {pool!r} is not ported yet (ROADMAP.md Queue 1)")
-        if att_h is None:
-            self.model = PoolAtt(d_input, output_size)
+        if pool == "att":
+            self.model = (PoolAtt(d_input, output_size) if att_h is None
+                          else PoolAttFF(d_input, output_size, int(att_h)))
+        elif pool in ("avg", "max", "last_step", "last_step_bi"):
+            self.model = PoolReduce(d_input, output_size, pool)
         else:
-            self.model = PoolAttFF(d_input, output_size, int(att_h))
+            raise NotImplementedError(f"Pool option not available: {pool}")
 
     def forward(self, x, n_wins):
         return self.model(x, n_wins)

@@ -1,17 +1,46 @@
-"""Time-dependency models: post-norm Transformer self-attention, skip.
+"""Time-dependency models: post-norm Transformer self-attention, LSTM, skip.
 
 Counterpart of ``nisqa_tpu/models/td.py`` (``self_attention_apply``,
 ``td_apply``): static (B, T, D) layout with a key-validity mask, residual
-then LayerNorm as in the reference. LSTM and positional encoding are not
-ported yet and raise.
+then LayerNorm as in the reference, the optional sinusoidal positional
+encoding added after the input LayerNorm, and the masked LSTM of
+:class:`.modules.MaskedLSTM`.
 """
 
 from __future__ import annotations
 
+import math
+
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .modules import MultiheadSelfAttention, length_mask
+from .modules import MaskedLSTM, MultiheadSelfAttention, length_mask
+
+
+def positional_encoding_table(d_model: int, max_len: int = 3000):
+    """(max_len, d_model) float32 sinusoids, computed in float64 as the JAX
+    package's table is."""
+    pos = torch.arange(max_len, dtype=torch.float64)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float64)
+                    * (-math.log(10000.0) / d_model))
+    pe = torch.zeros((max_len, d_model), dtype=torch.float64)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.float()
+
+
+class PositionalEncoding(nn.Module):
+    """Holds the reference's buffer ``pe`` in its seq-first layout
+    (max_len, 1, d_model)."""
+
+    def __init__(self, d_model: int, max_len: int = 3000):
+        super().__init__()
+        self.register_buffer("pe", positional_encoding_table(d_model, max_len)[:, None, :])
+
+    def forward(self, h):
+        """h (B, T, D) -> h + pe[:T]."""
+        return h + self.pe[: h.shape[1], 0][None]
 
 
 class SelfAttentionLayer(nn.Module):
@@ -31,19 +60,34 @@ class SelfAttentionLayer(nn.Module):
 class SelfAttention(nn.Module):
     """Input projection + LayerNorm, then ``num_layers`` encoder layers."""
 
-    def __init__(self, input_size: int, d_model: int, nhead: int, num_layers: int, sa_h: int):
+    def __init__(self, input_size: int, d_model: int, nhead: int, num_layers: int, sa_h: int,
+                 pos_enc: bool = False):
         super().__init__()
         self.linear = nn.Linear(input_size, d_model)
         self.norm1 = nn.LayerNorm(d_model)
         self.layers = nn.ModuleList(
             SelfAttentionLayer(d_model, nhead, sa_h) for _ in range(num_layers))
+        self.pos_encoder = PositionalEncoding(d_model) if pos_enc else None
 
     def forward(self, x, n_wins):
         key_valid = length_mask(n_wins, x.shape[1])
         h = self.norm1(self.linear(x))
+        if self.pos_encoder is not None:
+            h = self.pos_encoder(h)
         for layer in self.layers:
             h = layer(h, key_valid)
         return h
+
+
+class LSTM(nn.Module):
+    """Holds ``.lstm`` (state-dict prefix ``time_dependency.model.lstm.*``)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, bidirectional: bool):
+        super().__init__()
+        self.lstm = MaskedLSTM(input_size, hidden_size, num_layers, bidirectional)
+
+    def forward(self, x, n_wins):
+        return self.lstm(x, n_wins)
 
 
 class TimeDependency(nn.Module):
@@ -54,20 +98,22 @@ class TimeDependency(nn.Module):
         super().__init__()
         kind = cfg.get(prefix) or "skip"
         if kind == "self_att":
-            if cfg.get(f"{prefix}_sa_pos_enc"):
-                raise NotImplementedError(
-                    "positional encoding is not ported yet (ROADMAP.md Queue 1)")
             d_model = int(cfg[f"{prefix}_sa_d_model"])
             self.model = SelfAttention(
                 input_size, d_model, int(cfg[f"{prefix}_sa_nhead"]),
-                int(cfg[f"{prefix}_sa_num_layers"]), int(cfg[f"{prefix}_sa_h"]))
+                int(cfg[f"{prefix}_sa_num_layers"]), int(cfg[f"{prefix}_sa_h"]),
+                bool(cfg.get(f"{prefix}_sa_pos_enc")))
             self.fan_out = d_model
+        elif kind == "lstm":
+            h = int(cfg[f"{prefix}_lstm_h"])
+            bi = bool(cfg[f"{prefix}_lstm_bidirectional"])
+            self.model = LSTM(input_size, h, int(cfg[f"{prefix}_lstm_num_layers"]), bi)
+            self.fan_out = (2 if bi else 1) * h
         elif kind == "skip":
             self.model = None
             self.fan_out = input_size
         else:
-            raise NotImplementedError(
-                f"Time dependency {kind!r} is not ported yet (ROADMAP.md Queue 1)")
+            raise NotImplementedError(f"Time dependency option not available: {kind}")
 
     def forward(self, x, n_wins):
         return x if self.model is None else self.model(x, n_wins)

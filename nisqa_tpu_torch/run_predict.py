@@ -4,9 +4,10 @@
 Examples:
   python -m nisqa_tpu_torch.run_predict --mode predict_file --pretrained_model weights/nisqa.tar --deg /path/to/wav --output_dir out/
   python -m nisqa_tpu_torch.run_predict --mode predict_dir  --pretrained_model weights/nisqa.tar --data_dir /folder/with/wavs --output_dir out/ --bs 32
+  python -m nisqa_tpu_torch.run_predict --mode predict_csv  --pretrained_model weights/nisqa.tar --csv_file f.csv --csv_deg column_name --data_dir dir --output_dir out/
 
 The device defaults to CUDA; ``--tr_device cpu`` is the only way to run on
-the CPU. predict_csv is not ported yet (ROADMAP.md Queue 1).
+the CPU.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ def parse_args(argv=None) -> dict:
             raise ValueError("--csv_file argument with csv file name needed")
         if args["csv_deg"] is None:
             raise ValueError("--csv_deg argument with csv column name of the filenames needed")
-        raise NotImplementedError(
-            "predict_csv is not ported to nisqa_tpu_torch yet (ROADMAP.md Queue 1)")
+        if args["data_dir"] is None:
+            args["data_dir"] = ""
     else:
         raise NotImplementedError("--mode given not available")
 
@@ -55,8 +56,12 @@ def parse_args(argv=None) -> dict:
     return args
 
 
-def main(argv=None) -> list[dict]:
-    return NisqaTorch(parse_args(argv)).predict()
+def main(argv=None) -> NisqaTorch:
+    """Predicts as the CLI does; returns the runner (its ``ds_val.df`` holds
+    the results, its ``engine`` the serving engine)."""
+    nisqa = NisqaTorch(parse_args(argv))
+    nisqa.predict()
+    return nisqa
 
 
 if __name__ == "__main__":

@@ -21,7 +21,10 @@ from nisqa_tpu_torch.ops import dft_mel as dm
 from tests.test_e2e import TINY_ARGS
 from tests.test_torch_front_end import YAML_MS
 
-GEOMS = [("tiny8k", TINY_ARGS, 8000), ("yaml48k", YAML_MS, 48000), ("yaml16k", YAML_MS, 16000)]
+# the released NISQA-TTS model's front-end: fmax 8 kHz keeps K = 768 bins at 48 kHz
+TTS_MS = {**YAML_MS, "ms_fmax": 8000, "ms_seg_hop_length": 1, "ms_max_segments": 6000}
+GEOMS = [("tiny8k", TINY_ARGS, 8000), ("yaml48k", YAML_MS, 48000), ("yaml16k", YAML_MS, 16000),
+         ("tts48k", TTS_MS, 48000)]
 GEOM_IDS = [g[0] for g in GEOMS]
 H100_SMS = 132
 EXACT_BOUND, FAST_BOUND = 1e-5, 1e-4  # relative to max|reference|, as chip_smoke.py holds the kernel
@@ -184,6 +187,17 @@ def test_plan_grid(n, row_tiles, splits):
     rt, sp, per = dm.plan_grid(n, k_tiles, H100_SMS)
     assert (rt, sp) == (row_tiles, splits)
     assert rt * dm.ROWS_PER_BLOCK >= n and (sp - 1) * per < k_tiles <= sp * per
+
+
+@pytest.mark.parametrize("n,row_tiles,splits", [(1001, 8, 11), (8 * 6014, 376, 1)])
+def test_plan_grid_tts(n, row_tiles, splits):
+    """The TTS shapes: 11 active K tiles of 12 (bins 704-767 touch no band),
+    the largest bucket's 8 x 6,014 rows and a small ragged N split over K."""
+    kc = dm.prepare_consts(*_consts(TTS_MS, 48000).values(), bf16=True)
+    assert kc["k_pad"] == 768 and len(kc["tiles"]) == 11
+    rt, sp, per = dm.plan_grid(n, len(kc["tiles"]), H100_SMS)
+    assert (rt, sp) == (row_tiles, splits)
+    assert rt * dm.ROWS_PER_BLOCK >= n and (sp - 1) * per < len(kc["tiles"]) <= sp * per
 
 
 def test_plan_grid_edges():

@@ -120,10 +120,10 @@ def test_cli_csv_matches_jax_and_runs_without_jax(corpus, tmp_path):
         for c in cols[1:-1]:
             assert abs(float(a[c]) - float(b[c])) <= 1e-3
 
-    rows = port_main(["--mode", "predict_file", "--pretrained_model", ckpt, "--deg",
-                      str(tmp / names[2]), "--output_dir", str(file_dir), "--tr_device", "cpu"])
+    runner = port_main(["--mode", "predict_file", "--pretrained_model", ckpt, "--deg",
+                        str(tmp / names[2]), "--output_dir", str(file_dir), "--tr_device", "cpu"])
     one = _read_csv(file_dir / "NISQA_results.csv")
-    assert len(rows) == len(one) == 1 and one[0]["deg"] == names[2]
+    assert len(runner.ds_val.df) == len(one) == 1 and one[0]["deg"] == names[2]
     for c in cols[1:-1]:
         assert abs(float(one[0][c]) - float(ref[2][c])) <= 1e-3
 
@@ -143,9 +143,15 @@ def test_error_paths(corpus, tmp_path):
                    "--data_dir", str(empty), "--tr_device", "cpu"])
     with pytest.raises(ValueError, match="--deg argument"):
         port_main(["--mode", "predict_file", "--pretrained_model", ckpts["NISQA"]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="--csv_deg argument"):
         port_main(["--mode", "predict_csv", "--pretrained_model", ckpts["NISQA"],
-                   "--csv_file", "f.csv", "--csv_deg", "deg"])
+                   "--csv_file", "f.csv"])
+    with pytest.raises(FileNotFoundError, match="missing.csv"):
+        port_main(["--mode", "predict_csv", "--pretrained_model", ckpts["NISQA"],
+                   "--csv_file", "missing.csv", "--csv_deg", "deg", "--data_dir", str(empty),
+                   "--tr_device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        NisqaTorch({"mode": "main", "pretrained_model": ckpts["NISQA"], "tr_device": "cpu"})
 
 
 def test_no_silent_cpu_fallback(corpus, monkeypatch):

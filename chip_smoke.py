@@ -51,7 +51,20 @@ never prints its last line):
      a labelled CSV of phase 5's corpus in a shuffled order, then
      ``NisqaTorch.evaluate`` with a condition CSV: columns and row order,
      one launch per batch, predictions equal to phase 5's, finite metrics;
-  10. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
+  10. double-ended: the trained NISQA_DE weights (``tests/goldens/
+     de_trained.tar``, yaml geometry) through ``run_predict --mode
+     predict_csv --bs 32`` over 96 degraded/reference pairs at 48 kHz (one
+     with a float32 reference, so the f32 transport) and 4 at 16 kHz, the
+     reference column from the checkpoint's ``csv_ref``: two kernel launches
+     per cold batch; warm cold passes with the kernel and the twin
+     front-end at "highest" (within 1e-3) and at the default precision;
+     the serving regimes of phase 6 over the pairs at "highest" (each
+     within 1e-5 of the cold pass) with degraded-side audio-s/s, idle share,
+     top device kernels, peak device memory and the alignment's share of the
+     forward, and a cached pass at the default precision;
+     then each scorer x apply of the alignment once at T 1,300 and bs 32
+     with random weights: finite outputs, time and peak device memory;
+  11. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
      of every port module loads no jax, pandas, yaml, matplotlib or
      ``nisqa_tpu``.
 
@@ -66,6 +79,7 @@ import csv
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -86,6 +100,9 @@ YAML_GEOMETRY = {
 TTS_GEOMETRY = {**YAML_GEOMETRY, "ms_fmax": 8000, "ms_seg_hop_length": 1, "ms_max_segments": 6000}
 BATCH = 32
 TTS_BATCH = 8
+# the trained double-ended weights: the shipped DE architecture at the yaml geometry
+DE_TAR = os.path.join(REPO, "tests", "goldens", "de_trained.tar")
+DE_SCORERS = ("dot", "cosine", "distance", "bahd", "luong")
 EXACT_BOUND, FAST_BOUND = 1e-5, 1e-4  # kernel vs twin, relative to max|twin|
 GOLDEN_BOUND = 2e-4                   # model vs torch golden, absolute
 PASS_BOUND = 1e-3                     # kernel vs twin front-end predictions at "highest"
@@ -234,6 +251,16 @@ def write_pcm16(path: str, y, sr: int):
         w.writeframes(pcm.tobytes())
 
 
+def write_float32(path: str, y, sr: int):
+    """Mono IEEE-float WAV (format tag 3), which the ``wave`` module cannot write."""
+    data = np.asarray(y, dtype="<f4").tobytes()
+    fmt = struct.pack("<HHIIHH", 3, 1, sr, sr * 4, 4, 32)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
 def write_corpus(out_dir: str, seed: int):
     """64 PCM16 WAVs at 48 kHz, 3-30 s log-uniform (the repo bench's
     recipe), plus 4 at 16 kHz. Returns the total audio seconds."""
@@ -265,6 +292,32 @@ def write_tts_corpus(out_dir: str, seed: int):
         write_pcm16(os.path.join(out_dir, f"tts_{sr // 1000}k_{i:02d}.wav"), y, sr)
         total += n / sr
     return total
+
+
+def write_de_corpus(out_dir: str, seed: int):
+    """96 degraded/reference pairs at 48 kHz and 4 at 16 kHz
+    (``tools/bench_de.py::make_de_corpus``'s recipe, lengths drawn): the
+    reference a multi-harmonic tone of 3-12 s, log-uniform; the degraded end
+    the reference plus white noise at an SNR uniform in 0-40 dB, cut 0-0.5 s
+    shorter. The last 48 kHz pair's reference is a float32 WAV. Returns
+    (degraded names, reference names, degraded audio-s)."""
+    rng = np.random.default_rng(seed)
+    deg, ref, total = [], [], 0.0
+    for i, sr in enumerate([48000] * 96 + [16000] * 4):
+        n = int(sr * float(np.exp(rng.uniform(np.log(3.0), np.log(12.0)))))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(100, 300)
+        y = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 2.05 * f0 * t)
+             + 0.05 * np.sin(2 * np.pi * 3.1 * f0 * t))
+        noise = rng.standard_normal(n)
+        noise *= np.sqrt((y ** 2).mean() / 10 ** (rng.uniform(0.0, 40.0) / 10) / (noise ** 2).mean())
+        cut = n - int(sr * rng.uniform(0.0, 0.5))
+        deg.append(f"de_{sr // 1000}k_{i:03d}_deg.wav")
+        ref.append(f"de_{sr // 1000}k_{i:03d}_ref.wav")
+        write_pcm16(os.path.join(out_dir, deg[-1]), np.clip(y + noise, -0.999, 0.999)[:cut], sr)
+        (write_float32 if i == 95 else write_pcm16)(os.path.join(out_dir, ref[-1]), y, sr)
+        total += cut / sr
+    return deg, ref, total
 
 
 def make_corpus(tmp: str, meta, sd, seed: int):
@@ -395,11 +448,17 @@ def idle_share(fn):
     return busy, wall, max(0.0, 1.0 - busy / wall), by_name
 
 
-def serving(tar: str, paths, audio_s: float, card: str):
-    """Phase 6: the serving engine through ``load_predictor`` at bs 32,
-    default precision. Returns {regime: kernel launches in its pass}."""
+def serving(tar: str, paths, audio_s: float, card: str, paths_ref=None, precision=None):
+    """Phase 6 (and phase 10's regimes, with ``paths_ref``): the serving
+    engine through ``load_predictor`` at bs 32, at ``precision`` (None: the
+    engine's default). Each cold batch launches the kernel once per end.
+    Returns {regime: kernel launches in its pass}."""
     import nisqa_tpu_torch
     from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+
+    label = "serving" if paths_ref is None else f"de serving at {precision!r}"
+    unit = "audio-s/s" if paths_ref is None else "degraded audio-s/s"
+    ends = 1 if paths_ref is None else 2
 
     def launched(fn):
         fused_dft_mel.LAUNCHES = 0
@@ -408,11 +467,14 @@ def serving(tar: str, paths, audio_s: float, card: str):
         return out, fused_dft_mel.LAUNCHES
 
     def report(regime, predict, fn, y_ref=None, profile_it=True, passes=1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         secs = []
         for _ in range(WARM_REPS):
             t0 = time.perf_counter()
             y = fn()
             secs.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         dt = float(np.median(secs))
         if y_ref is not None:
             diff = float(np.abs(y - y_ref).max())
@@ -420,32 +482,39 @@ def serving(tar: str, paths, audio_s: float, card: str):
         busy, wall, idle, _ = idle_share(fn) if profile_it else (None, None, None, None)
         idle_txt = ("not measured" if idle is None else
                     f"{idle:.4f} (device busy {busy:.4f} s of {wall:.4f} s, torch.profiler)")
-        print(f"serving {regime}: {passes * audio_s / dt:.1f} audio-s/s (median {dt:.4f} s of "
-              f"{[round(t, 4) for t in secs]}); idle share {idle_txt}; "
-              f"stats.last {json.dumps(predict.engine.stats['last'])} on {card}", flush=True)
+        print(f"{label} {regime}: {passes * audio_s / dt:.1f} {unit} (median {dt:.4f} s of "
+              f"{[round(t, 4) for t in secs]}); idle share {idle_txt}; peak device memory "
+              f"{peak_gb:.3f} GB; stats.last {json.dumps(predict.engine.stats['last'])} on {card}",
+              flush=True)
 
-    predict = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=512)
+    def load(**kw):
+        predict = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, precision=precision, **kw)
+        return predict, lambda **f: predict(paths, paths_ref, **f)
+
+    predict, run = load(cache_mb=512)
     eng = predict.engine
-    n_batches = len(eng.plan(paths))
+    n_batches = len(eng.plan(paths, paths_ref))
     t0 = time.perf_counter()
-    warmed = eng.warmup(paths)
-    print(f"warmup: {len(warmed)} shapes {warmed} in {time.perf_counter() - t0:.3f} s", flush=True)
+    warmed = eng.warmup(paths, paths_ref)
+    print(f"{label} warmup: {len(warmed)} shapes {warmed} in {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     launches = {}
-    y_cold, launches["interleaved"] = launched(lambda: predict(paths))
+    y_cold, launches["interleaved"] = launched(run)
     last = eng.stats["last"]
-    print(f"serving cold pass: stats.last {json.dumps(last)}, fused_dft_mel "
+    print(f"{label} cold pass: stats.last {json.dumps(last)}, fused_dft_mel "
           f"launches={launches['interleaved']} for {n_batches} batches", flush=True)
     check(last["mode"] == "interleaved", f"first pass ran {last['mode']}, not interleaved")
-    check(launches["interleaved"] == n_batches,
+    check(launches["interleaved"] == ends * n_batches,
           f"cold pass launched the kernel {launches['interleaved']}x for {n_batches} batches")
-    check(bool(np.isfinite(y_cold).all()) and y_cold.shape == (len(paths), 5),
+    out_dim = 5 if eng.model.dim else 1
+    check(bool(np.isfinite(y_cold).all()) and y_cold.shape == (len(paths), out_dim),
           f"cold pass gave {y_cold.shape} or non-finite values")
 
-    y_cached, launches["cached"] = launched(lambda: predict(paths))
+    y_cached, launches["cached"] = launched(run)
     last = eng.stats["last"]
     diff = float(np.abs(y_cached - y_cold).max())
-    print(f"serving cached pass: stats.last {json.dumps(last)}, fused_dft_mel "
+    print(f"{label} cached pass: stats.last {json.dumps(last)}, fused_dft_mel "
           f"launches={launches['cached']}, max_abs_diff vs cold={diff} bound={SERVE_BOUND}",
           flush=True)
     check(last["mode"] == "cached", f"second pass ran {last['mode']}, not cached")
@@ -453,56 +522,81 @@ def serving(tar: str, paths, audio_s: float, card: str):
     check(diff <= SERVE_BOUND, f"cached pass off by {diff} from the cold pass")
 
     def two_async():
-        h1, h2 = predict(paths, fetch="async"), predict(paths, fetch="async")
+        h1, h2 = run(fetch="async"), run(fetch="async")
         return h1(), h2()
 
     (ya, yb), launches["async"] = launched(two_async)
     diff = max(float(np.abs(ya - y_cold).max()), float(np.abs(yb - y_cold).max()))
-    print(f"serving two async cached passes: max_abs_diff vs cold={diff}, fused_dft_mel "
+    print(f"{label} two async cached passes: max_abs_diff vs cold={diff}, fused_dft_mel "
           f"launches={launches['async']}", flush=True)
     check(diff <= SERVE_BOUND and launches["async"] == 0, f"async passes off by {diff}")
-    report("cached (fused)", predict, lambda: predict(paths), y_cold)
+    report("cached (fused)", predict, run, y_cold)
     report("cached, two async passes per timing", predict, lambda: two_async()[1], y_cold,
            profile_it=False, passes=2)
+    if paths_ref is not None:
+        alignment_share(eng, card)
     full_mb = eng._cache_bytes / (1 << 20)
 
-    per_batch = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=512,
-                                               fuse_pass=False)
-    per_batch(paths)
-    y_pb = per_batch(paths)
+    per_batch, run_pb = load(cache_mb=512, fuse_pass=False)
+    run_pb()
+    y_pb = run_pb()
     diff = float(np.abs(y_pb - y_cached).max())
-    print(f"serving fuse_pass=False cached pass: max_abs_diff vs fused={diff}; stats.last "
+    print(f"{label} fuse_pass=False cached pass: max_abs_diff vs fused={diff}; stats.last "
           f"{json.dumps(per_batch.engine.stats['last'])}", flush=True)
     check(per_batch.engine.stats["last"]["mode"] == "cached" and diff <= SERVE_BOUND,
           f"fuse_pass=False cached pass off by {diff} from the fused one")
-    del per_batch
+    del per_batch, run_pb
 
-    partial = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=full_mb / 2)
-    partial.engine.warmup(paths)
-    partial(paths)
-    (y_part, launches["cached_partial"]) = launched(lambda: partial(paths))
+    partial, run_part = load(cache_mb=full_mb / 2)
+    partial.engine.warmup(paths, paths_ref)
+    run_part()
+    (y_part, launches["cached_partial"]) = launched(run_part)
     last = partial.engine.stats["last"]
     diff = float(np.abs(y_part - y_cold).max())
-    print(f"serving partial pass (cache_mb={full_mb / 2:.3f} of {full_mb:.3f} MB): stats.last "
+    print(f"{label} partial pass (cache_mb={full_mb / 2:.3f} of {full_mb:.3f} MB): stats.last "
           f"{json.dumps(last)}, fused_dft_mel launches={launches['cached_partial']}, "
           f"max_abs_diff vs cold={diff}", flush=True)
     check(last["mode"] == "cached_partial", f"partial pass ran {last['mode']}")
     check(last["resident_batches"] > 0 and last["cold_batches"] > 0,
           f"partial pass kept {last['resident_batches']} resident, {last['cold_batches']} cold")
-    check(launches["cached_partial"] == last["cold_batches"],
+    check(launches["cached_partial"] == ends * last["cold_batches"],
           f"partial pass launched the kernel {launches['cached_partial']}x for "
           f"{last['cold_batches']} cold batches")
     check(diff <= SERVE_BOUND, f"partial pass off by {diff} from the cold pass")
-    report("cached_partial", partial, lambda: partial(paths), y_cold)
-    del partial
+    report("cached_partial", partial, run_part, y_cold)
+    del partial, run_part
 
-    cold = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, cache_mb=0)
-    cold.engine.warmup(paths)
-    cold(paths)
-    report("interleaved (cache_mb=0)", cold, lambda: cold(paths), y_cold)
+    cold, run_cold = load(cache_mb=0)
+    cold.engine.warmup(paths, paths_ref)
+    run_cold()
+    report("interleaved (cache_mb=0)", cold, run_cold, y_cold)
     check(cold.engine.stats["last"]["mode"] == "interleaved",
           f"cache_mb=0 pass ran {cold.engine.stats['last']['mode']}")
     return launches
+
+
+def alignment_share(eng, card: str):
+    """The alignment's share of the DE model's device time over the fused
+    parts of ``eng``'s cached entry: CUDA-event times of ``model.align`` on
+    each part's trunk features against the whole ``forward_ends``."""
+    from nisqa_tpu_torch.data.front_end import seg_fn
+    from nisqa_tpu_torch.data.pipeline import matmul_precision
+
+    model, ms = eng.model, eng.ms
+    entry = next(iter(eng._corpus_cache.values()))
+    check(entry["mode"] == "mel_fused", f"cache entry {entry['mode']}, not mel_fused")
+    align_ms = forward_ms = 0.0
+    with torch.inference_mode(), matmul_precision(eng.precision):
+        for gkey, db_d, n_d, db_r, n_r in entry["parts"]:
+            (deg, nw_d), (ref, nw_r) = (seg_fn(ms, gkey[0], gkey[1], db, n)
+                                        for db, n in ((db_d, n_d), (db_r, n_r)))
+            fd, fr = model.trunk_ends(deg, nw_d, ref, nw_r)
+            model.align(fd, fr, nw_r)  # warm
+            align_ms += event_ms(lambda: model.align(fd, fr, nw_r), 5)
+            forward_ms += event_ms(lambda: model.forward_ends(deg, nw_d, ref, nw_r), 5)
+    print(f"de alignment ({model.align.method}/{model.align.apply_method}) over "
+          f"{len(entry['parts'])} fused parts: {align_ms:.3f} ms of {forward_ms:.3f} ms forward "
+          f"device time = {align_ms / forward_ms:.4f} (CUDA events) on {card}", flush=True)
 
 
 def tts_path(tmp: str, meta, sd, seed: int, card: str):
@@ -698,6 +792,153 @@ def csv_and_evaluate(tmp: str, tar: str, paths, y_dir, seed: int, card: str):
     return launches
 
 
+def de_path(tmp: str, seed: int, card: str):
+    """Phase 10: the trained NISQA_DE weights over the pair corpus through
+    ``run_predict --mode predict_csv --bs 32``, warm cold passes with the
+    kernel and the twin front-end, then the serving regimes. Returns
+    {pass: kernel launches}."""
+    from nisqa_tpu_torch import load_predictor, run_predict
+    from nisqa_tpu_torch.data.pipeline import InferenceEngine
+    from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
+
+    corpus, out_dir = os.path.join(tmp, "de_wavs"), os.path.join(tmp, "de_out")
+    os.makedirs(corpus)
+    os.makedirs(out_dir)
+    deg, ref, audio_s = write_de_corpus(corpus, seed)
+    with open(os.path.join(corpus, "pairs.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["deg", "ref"])
+        w.writerows(zip(deg, ref))
+    paths = [os.path.join(corpus, d) for d in deg]
+    paths_ref = [os.path.join(corpus, r) for r in ref]
+
+    launches = {}
+    fused_dft_mel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    runner = run_predict.main(["--mode", "predict_csv", "--pretrained_model", DE_TAR,
+                               "--csv_file", "pairs.csv", "--csv_deg", "deg", "--data_dir", corpus,
+                               "--output_dir", out_dir, "--bs", str(BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["de_predict_csv"] = fused_dft_mel.LAUNCHES
+    with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
+        table = list(csv.DictReader(f))
+    check(runner.model.name == "NISQA_DE", f"the checkpoint built {runner.model.name}")
+    check(len(table) == len(deg) and list(table[0]) == ["deg", "ref", "mos_pred", "model"],
+          f"NISQA_results.csv: {len(table)} rows, columns {list(table[0])}")
+    check([(r["deg"], r["ref"]) for r in table] == list(zip(deg, ref)), "row order")
+    y_cli = np.array([[float(r["mos_pred"])] for r in table])
+    check(bool(np.isfinite(y_cli).all()), "non-finite predictions in NISQA_results.csv")
+    plan = runner.engine.plan(paths, paths_ref)
+    print(f"de predict_csv: {len(table)} pairs, {len(plan)} batches "
+          f"{[(g, len(c)) for g, c in plan]}, fused_dft_mel launches="
+          f"{launches['de_predict_csv']}; {audio_s:.1f} degraded audio-s in {wall:.3f} s wall "
+          f"(checkpoint load and first-call set-up included) = {audio_s / wall:.1f} audio-s/s "
+          f"on {card}", flush=True)
+    check(launches["de_predict_csv"] == 2 * len(plan),
+          f"fused_dft_mel launched {launches['de_predict_csv']}x for {len(plan)} batches")
+    check(any(kind == "f32" for (_, _, kind), _ in plan), "no pair took the f32 transport")
+
+    # cold passes only (cache_mb=0), kernel and twin front-end, both precisions
+    engines = {
+        (precision, name): InferenceEngine(runner.model, runner.ms, "cuda", batch_size=BATCH,
+                                           precision=precision, dft_mel=dft_mel, cache_mb=0)
+        for precision in ("default", "highest")
+        for name, dft_mel in (("kernel", fused_dft_mel), ("twin", dft_mel_reference))
+    }
+    for engine in engines.values():
+        engine.predict_paths(paths, paths_ref)  # untimed: constant preparation, cuDNN set-up
+    y, secs = {}, {key: [] for key in engines}
+    for r in range(WARM_REPS):
+        for key in list(engines)[:: 1 if r % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            y[key] = engines[key].predict_paths(paths, paths_ref)
+            secs[key].append(time.perf_counter() - t0)
+    for (precision, name), engine in engines.items():
+        dt = float(np.median(secs[precision, name]))
+        print(f"de warm cold pass precision={precision} fe={engine.fe_precision} "
+              f"front-end={name}: {audio_s / dt:.1f} degraded audio-s/s (median {dt:.4f} s of "
+              f"{[round(t, 4) for t in secs[precision, name]]}) on {card}", flush=True)
+    diff = float(np.abs(y["highest", "kernel"] - y["highest", "twin"]).max())
+    print(f"de kernel vs twin front-end at 'highest': max_abs_diff={diff} bound={PASS_BOUND}",
+          flush=True)
+    check(diff <= PASS_BOUND, f"de kernel and twin front-ends disagree by {diff} at 'highest'")
+    gap = np.abs(y["default", "kernel"] - y["highest", "kernel"])
+    print(f"de default vs 'highest' (kernel front-end): max_abs_diff={float(gap.max())}, "
+          f"mean={float(gap.mean())} (a default-precision DE gap under 0.02 is not a fault)",
+          flush=True)
+    check(float(np.abs(y_cli - y["default", "kernel"]).max()) <= SERVE_BOUND,
+          "the CLI pass differs from the warm default-precision cold passes")
+    del engines, y
+
+    # the regimes at "highest": at the default precision a fused part of
+    # k*bs rows runs other TF32 kernels than its k batches of bs rows did,
+    # and the hard alignment's argmax amplifies that beyond SERVE_BOUND
+    for regime, n in serving(DE_TAR, paths, audio_s, card, paths_ref, "highest").items():
+        launches[f"de_{regime}"] = n
+    predict = load_predictor(DE_TAR, batch_size=BATCH, cache_mb=512)
+    y_cold = predict(paths, paths_ref)
+    secs = []
+    for _ in range(WARM_REPS):
+        t0 = time.perf_counter()
+        y_cached = predict(paths, paths_ref)
+        secs.append(time.perf_counter() - t0)
+    dt = float(np.median(secs))
+    print(f"de serving at 'default' cached (fused): {audio_s / dt:.1f} degraded audio-s/s "
+          f"(median {dt:.4f} s of {[round(t, 4) for t in secs]}); max_abs_diff vs its cold pass "
+          f"{float(np.abs(y_cached - y_cold).max())} (TF32, not bounded) on {card}", flush=True)
+    return launches
+
+
+def de_scorers(seed: int, card: str):
+    """Phase 10, last part: each scorer x apply of the alignment in the
+    trained DE architecture with random weights, once at the largest bucket
+    (T 1,300) and bs 32 on ragged lengths, at the default precision: finite
+    outputs, CUDA-event times of the forward and of the alignment alone,
+    and the peak device memory of each (over what was allocated before)."""
+    from nisqa_tpu_torch.compat.checkpoint import load_torch_checkpoint
+    from nisqa_tpu_torch.compat.model_args import model_args_from_ckpt_args
+    from nisqa_tpu_torch.data.pipeline import MsConfig, matmul_precision
+    from nisqa_tpu_torch.models.nisqa import build_model
+
+    args = load_torch_checkpoint(DE_TAR)["args"]
+    ms = MsConfig(args)
+    t = ms.max_segments
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    deg, ref = (torch.randn((BATCH, t, ms.n_mels, ms.seg_length), device="cuda", generator=g)
+                * 10 - 40 for _ in range(2))
+    n_deg = torch.linspace(t, 1, BATCH, device="cuda").round().long()
+    n_ref = n_deg.flip(0)
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    for method in DE_SCORERS:
+        for apply in ("hard", "soft"):
+            torch.manual_seed(seed)
+            model = build_model("NISQA_DE", model_args_from_ckpt_args(
+                {**args, "de_align": method, "de_align_apply": apply})).cuda().eval()
+            with torch.inference_mode(), matmul_precision("default"):
+                y, fwd_gb = peak_gb(lambda: model.forward_ends(deg, n_deg, ref, n_ref))
+                fd, fr = model.trunk_ends(deg, n_deg, ref, n_ref)
+                _, align_gb = peak_gb(lambda: model.align(fd, fr, n_ref))
+                fwd_ms = event_ms(lambda: model.forward_ends(deg, n_deg, ref, n_ref))
+                align_ms = event_ms(lambda: model.align(fd, fr, n_ref), 3)
+            print(f"de scorer {method}/{apply} at T={t}, bs {BATCH}: forward {fwd_ms:.3f} ms, "
+                  f"peak {fwd_gb:.3f} GB; alignment {align_ms:.3f} ms, peak {align_gb:.3f} GB "
+                  f"on {card}", flush=True)
+            check(y.shape == (BATCH, 1) and bool(torch.isfinite(y).all()),
+                  f"scorer {method}/{apply} gave {tuple(y.shape)} or non-finite values")
+            del model, y, fd, fr
+    del deg, ref
+    torch.cuda.empty_cache()
+
+
 def import_check():
     """The port loaded nothing of JAX or of the JAX package in this run, and
     importing it and all its submodules in a fresh process loads no jax,
@@ -747,7 +988,7 @@ def main(argv=None):
     print(f"SASS: {n_hgmma} HGMMA (wgmma) instructions", flush=True)
     check(n_hgmma > 0, "no HGMMA instruction in the kernel library: the tensor cores are unused")
 
-    # 3-9
+    # 3-10
     results, main, tts = kernel_vs_twin(opts.seed, opts.reps, card)
     meta, sd = model_golden("g2_dim")
     meta_tts, sd_tts = model_golden("g3_tts")
@@ -759,6 +1000,8 @@ def main(argv=None):
         lstm_takes_no_sync(tts_model, card)
         del tts_model
         csv_launches = csv_and_evaluate(tmp, tar, paths, y_dir, opts.seed, card)
+        de_launches = de_path(tmp, opts.seed, card)
+        de_scorers(opts.seed, card)
     import_check()
 
     fast, exact = main["fast"], main["exact"]
@@ -787,7 +1030,7 @@ def main(argv=None):
         "tts_exact_bound_ms": tts["exact"]["bound_ms"],
         "tts_exact_bound_by": tts["exact"]["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
-                             "tts_predict_dir": tts_launches, **csv_launches},
+                             "tts_predict_dir": tts_launches, **csv_launches, **de_launches},
     }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)

@@ -1,6 +1,6 @@
 """nisqa_tpu_torch: PyTorch + CUDA port of nisqa_tpu for one NVIDIA H100.
 
-Serves the NISQA and NISQA_DIM models (reference-format ``.tar``
+Serves the NISQA, NISQA_DIM and NISQA_DE models (reference-format ``.tar``
 checkpoints) over WAV / FLAC files: the front-end's DFT->mel step is a
 hand-written sm_90a CUDA kernel (``csrc/dft_mel.cu``), the rest is plain
 PyTorch. The JAX package ``nisqa_tpu`` is the reference it is tested
@@ -15,7 +15,8 @@ __version__ = "0.1.0"
 def load_predictor(checkpoint_path: str, batch_size: int = 32, tr_device=None,
                    **engine_kwargs):
     """One-call inference API: load a checkpoint and get a callable mapping
-    audio paths -> predictions ((N, 5) for NISQA_DIM, (N, 1) for NISQA).
+    audio paths -> predictions ((N, 5) for NISQA_DIM, (N, 1) for NISQA and
+    NISQA_DE, which also takes ``paths_ref``, the reference of each file).
 
     ``tr_device`` None means CUDA (raises without a card); "cpu" runs the
     plain kernel twins. Extra kwargs reach

@@ -1,10 +1,10 @@
 """Reference-format ``.tar`` checkpoints -> port models.
 
 Counterpart of ``nisqa_tpu/compat/torch_ckpt.py::load_torch_checkpoint`` and
-``load_model_from_tar`` for every single-ended model (NISQA, NISQA_DIM with
-any framewise, time-dependency and pooling option). The port's module tree
-carries the reference's state-dict names, so loading is
-``load_state_dict(strict=True)`` with no layout conversion.
+``load_model_from_tar`` for every model family (NISQA, NISQA_DIM and
+NISQA_DE, with any framewise, time-dependency, pooling, alignment and fusion
+option). The port's module tree carries the reference's state-dict names, so
+loading is ``load_state_dict(strict=True)`` with no layout conversion.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """JAX ``NisqaNet`` params / state pytrees -> the port's state dict.
 
-Counterpart of ``nisqa_tpu/compat/torch_ckpt.py::params_to_torch`` for the
-single-ended models (every framewise, time-dependency and pooling option),
-in the same key order. Takes the pytrees as numpy arrays, so it needs no
-JAX object. Layouts:
+Counterpart of ``nisqa_tpu/compat/torch_ckpt.py::params_to_torch`` for every
+model family (every framewise, time-dependency, pooling, alignment and
+fusion option), in the same key order. Takes the pytrees as numpy arrays,
+so it needs no JAX object. Layouts:
 
   * linear ``{"w": (in, out), "b"}``   -> ``weight`` (out, in), ``bias``;
   * conv HWIO                          -> OIHW;
@@ -17,7 +17,10 @@ JAX object. Layouts:
     backward direction with the suffix ``_reverse``; gate order (i, f, g, o)
     as it is;
   * the framewise fc: AdaptCNN ``fc``, StandardCNN ``fc_out``, Skip
-    ``linear``.
+    ``linear``;
+  * NISQA_DE: ``align`` ``wq`` / ``wy`` / ``v`` -> ``align.att.Wq`` /
+    ``Wy`` / ``v``, ``align`` ``w`` -> ``align.att.W``, ``fuse`` ``lin`` ->
+    ``fuse.lin_fusion``, after the pooling head as in ``params_to_torch``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 def state_dict_from_jax(params, state, model_name: str, model_args: dict) -> dict:
     """Returns {name: tensor} that ``load_state_dict(strict=True)`` accepts."""
-    if model_name not in ("NISQA", "NISQA_DIM"):
+    if model_name not in ("NISQA", "NISQA_DIM", "NISQA_DE"):
         raise NotImplementedError(f"state_dict_from_jax: model {model_name!r} is not ported")
     cfg = model_args
     sd = {}
@@ -106,4 +109,12 @@ def state_dict_from_jax(params, state, model_name: str, model_args: dict) -> dic
         for name in ("linear1", "linear2", "linear3", "linear"):
             if name in pp:
                 lin(f"{prefix}.{name}", pp[name])
+
+    if model_name == "NISQA_DE":
+        ap = params["align"]
+        for key, name in (("wq", "Wq"), ("wy", "Wy"), ("v", "v"), ("w", "W")):
+            if key in ap:
+                lin(f"align.att.{name}", ap[key])
+        if "lin" in params["fuse"]:
+            lin("fuse.lin_fusion", params["fuse"]["lin"])
     return sd

@@ -4,8 +4,8 @@ Counterpart of ``nisqa_tpu/data/pipeline.py``. ``MsConfig``,
 ``front_end_consts``, ``validate_filled_row`` and ``_resident_split`` are
 numpy-only and are moved here unchanged, because the JAX file imports jax;
 the tests hold them equal to the originals. :class:`InferenceEngine` keeps
-the JAX engine's method names for its serving regimes (single-ended models;
-``stats["last"]["mode"]`` names the regime):
+the JAX engine's method names for its serving regimes, for single-ended and
+double-ended models (``stats["last"]["mode"]`` names the regime):
 
   interleaved (cold pass):
     host  : header scan -> (sr, transport) groups -> length-sorted batches,
@@ -18,6 +18,12 @@ the JAX engine's method names for its serving regimes (single-ended models;
             DFT->mel kernel) -> seg+model stage (``seg_fn`` -> model)
     cache : each batch's mel dB and n stay on the device, keyed by the
             corpus's (path, size, mtime_ns), LRU under ``cache_mb``
+    double-ended (NISQA_DE, ``paths_ref``): a batch holds both ends of its
+            pairs at one length (the longer end's bucket) and one transport
+            (f32 when either end is); each end has its own staging ring,
+            upload, mel stage (two kernel launches per cold batch), seg_fn
+            and cached mel block, and the model takes the two ends apart
+            (``forward_ends``)
   cached: seg+model over the resident mel blocks (no decode, no upload, no
           front-end); runs of same-shape blocks are concatenated on the
           device once and run as one (k*bs) batch ("fused" parts)
@@ -286,7 +292,7 @@ class InferenceEngine:
         self._cache_bytes = 0
         self.stats = {"passes": 0, "files": 0, "cache_hits": 0, "last": None}
         self._consts = {}
-        self._rings = {}  # transport -> [_Slot] * RING_SLOTS
+        self._rings = {}  # transport, or (transport, "ref") -> [_Slot] * RING_SLOTS
         self._ring_next = {}
         self._fill_ex = None
         self._cuda = self.device.type == "cuda"
@@ -335,13 +341,29 @@ class InferenceEngine:
                     out[i] = v
         return out
 
-    def _metas_for(self, audio):
-        """Per-file (index, sr, n_wins, transport kind)."""
-        metas = []
-        for i, (tag, data, sr) in enumerate(audio):
+    def _metas_for(self, audio, audio_ref=None):
+        """Per-file (index, sr, n_wins, transport kind). A double-ended pair
+        takes the larger n_wins of its two ends and the f32 transport when
+        either end needs it; its ends must share a sample rate."""
+        ms = self.ms
+
+        def n_wins_kind(entry):
+            tag, data, sr = entry
             n = data if tag in ("native", "native_f32") else len(data)
-            kind = {"native": "i16", "native_f32": "f32"}.get(tag, tag)
-            metas.append((i, sr, self.ms.n_wins(self.ms.n_frames(n, sr)), kind))
+            return ms.n_wins(ms.n_frames(n, sr)), {"native": "i16", "native_f32": "f32"}.get(tag, tag)
+
+        metas = []
+        for i, entry in enumerate(audio):
+            sr = entry[2]
+            nw, kind = n_wins_kind(entry)
+            if audio_ref is not None:
+                ref = audio_ref[i]
+                if ref[2] != sr:
+                    raise ValueError(f"deg/ref sample rates differ for item {i}: {sr} != {ref[2]}")
+                nw_r, kind_r = n_wins_kind(ref)
+                nw = max(nw, nw_r)
+                kind = "f32" if "f32" in (kind, kind_r) else "i16"
+            metas.append((i, sr, nw, kind))
         return metas
 
     def _plan_for(self, metas):
@@ -360,21 +382,49 @@ class InferenceEngine:
                 plan.append(((sr, self.ms.bucket_for(chunk[0][0]), kind), [i for _, i in chunk]))
         return plan
 
-    def plan(self, paths):
-        """The batching plan :meth:`predict_paths` runs for ``paths``."""
-        return self._plan_for(self._metas_for(self._scan_transport(list(paths))))
+    def _check_ref(self, paths, paths_ref):
+        """``paths_ref`` as a list for a double-ended model, else None;
+        raises when it is missing, of another length, or given to a
+        single-ended model."""
+        if not self.model.double_ended:
+            if paths_ref is not None:
+                raise ValueError(f"paths_ref is for double-ended models; {self.model.name} "
+                                 "is single-ended")
+            return None
+        if paths_ref is None:
+            raise ValueError("NISQA_DE needs paths_ref: one reference file per degraded file")
+        paths_ref = list(paths_ref)
+        if len(paths_ref) != len(paths):
+            raise ValueError(f"paths_ref has {len(paths_ref)} files for {len(paths)} degraded files")
+        return paths_ref
 
-    def _host_buf(self, kind: str) -> _Slot:
-        """The next staging slot of ``kind``'s ring (taken in plan order by
-        the main thread, filled in the same order by the filler)."""
-        ring = self._rings.get(kind)
+    def _scan_plan(self, paths, paths_ref):
+        """(degraded-end audio, reference-end audio or None, plan)."""
+        audio = self._scan_transport(paths)
+        audio_ref = self._scan_transport(paths_ref) if paths_ref is not None else None
+        return audio, audio_ref, self._plan_for(self._metas_for(audio, audio_ref))
+
+    def plan(self, paths, paths_ref=None):
+        """The batching plan :meth:`predict_paths` runs for ``paths``."""
+        paths = list(paths)
+        return self._scan_plan(paths, self._check_ref(paths, paths_ref))[2]
+
+    def _ends(self) -> int:
+        return 2 if self.model.double_ended else 1
+
+    def _host_buf(self, kind: str, end: int = 0) -> _Slot:
+        """The next staging slot of the ring of ``kind`` and ``end`` (0 the
+        degraded end, 1 the reference; taken in plan order by the main
+        thread, filled in the same order by the filler)."""
+        key = (kind, "ref") if end else kind
+        ring = self._rings.get(key)
         if ring is None:
             dtype = torch.int16 if kind == "i16" else torch.float32
-            ring = self._rings[kind] = [_Slot(dtype, self.batch_size, self._cuda)
-                                        for _ in range(RING_SLOTS)]
-            self._ring_next[kind] = 0
-        j = self._ring_next[kind]
-        self._ring_next[kind] = (j + 1) % RING_SLOTS
+            ring = self._rings[key] = [_Slot(dtype, self.batch_size, self._cuda)
+                                       for _ in range(RING_SLOTS)]
+            self._ring_next[key] = 0
+        j = self._ring_next[key]
+        self._ring_next[key] = (j + 1) % RING_SLOTS
         return ring[j]
 
     def _make_batch(self, slot: _Slot, chunk, audio, paths, buf_len, kind):
@@ -493,57 +543,69 @@ class InferenceEngine:
         return mel_fn(self.ms, sr, bucket, self._consts_for(sr, kind), audio, n,
                       fast=self.fe_precision == "fast", dft_mel=self.dft_mel)
 
-    def _seg_model(self, gkey, db, n):
-        """Seg+model stage (the JAX engine's ``_seg_pipeline``): mel dB ->
+    def _seg_model(self, gkey, *blocks):
+        """Seg+model stage (the JAX engine's ``_seg_pipeline``): the mel
+        blocks ``db, n`` of each end (degraded, then reference) ->
         predictions, for any multiple of the batch size in rows."""
         sr, bucket, _ = gkey
-        return self.model(*seg_fn(self.ms, sr, bucket, db, n))
+        ends = [seg_fn(self.ms, sr, bucket, db, n) for db, n in zip(blocks[::2], blocks[1::2])]
+        if self.model.double_ended:
+            return self.model.forward_ends(*ends[0], *ends[1])
+        return self.model(*ends[0])
 
     def _sync(self):
         if self._cuda:
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _run_cold(self, batches, audio, paths, timings, keep):
+    def _run_cold(self, batches, audio, paths, timings, keep, audio_ref=None, paths_ref=None):
         """Fill (filler thread) -> upload -> mel -> seg+model for each
-        (gkey, chunk). Returns the per-batch outputs and, with ``keep``, the
-        (gkey, chunk, db, n) device blocks for the cache. A filler exception
-        reaches the caller through ``fut.result()``."""
+        (gkey, chunk), one fill, upload and mel stage per end. Returns the
+        per-batch outputs and, with ``keep``, the (gkey, chunk, db, n) or,
+        double-ended, (gkey, chunk, db_d, n_d, db_r, n_r) device blocks for
+        the cache. A filler exception reaches the caller through
+        ``fut.result()``."""
         timings["fill_s"] = 0.0
+        ends = [(audio, paths)] + ([(audio_ref, paths_ref)] if audio_ref is not None else [])
 
-        def fill(slot, chunk, buf_len, kind):
+        def fill(slots, chunk, buf_len, kind):
             tf = time.perf_counter()
-            self._make_batch(slot, chunk, audio, paths, buf_len, kind)
+            for slot, (end_audio, end_paths) in zip(slots, ends):
+                self._make_batch(slot, chunk, end_audio, end_paths, buf_len, kind)
             timings["fill_s"] += time.perf_counter() - tf
 
         jobs = []
         for gkey, chunk in batches:
             buf_len = frame_geometry(self.ms, gkey[0], gkey[1])[4]
-            slot = self._host_buf(gkey[2])
-            jobs.append((slot, buf_len, self._fill_pool().submit(fill, slot, chunk, buf_len, gkey[2])))
+            slots = [self._host_buf(gkey[2], e) for e in range(len(ends))]
+            jobs.append((slots, buf_len, self._fill_pool().submit(fill, slots, chunk, buf_len, gkey[2])))
         ys, kept = [], []
         wait_s = dispatch_s = 0.0
         try:
-            for (gkey, chunk), (slot, buf_len, fut) in zip(batches, jobs):
+            for (gkey, chunk), (slots, buf_len, fut) in zip(batches, jobs):
                 tw = time.perf_counter()
                 fut.result()
                 td = time.perf_counter()
                 wait_s += td - tw
-                audio_d, n_d = self._upload(slot, buf_len)
-                db = self._mel(gkey, audio_d, n_d)
-                ys.append(self._seg_model(gkey, db, n_d))
+                blocks = []
+                for slot in slots:
+                    audio_d, n_d = self._upload(slot, buf_len)
+                    blocks += [self._mel(gkey, audio_d, n_d), n_d]
+                ys.append(self._seg_model(gkey, *blocks))
                 if keep:
-                    kept.append((gkey, chunk, db, n_d))
+                    kept.append((gkey, chunk, *blocks))
                 dispatch_s += time.perf_counter() - td
         except BaseException:
             # free the filler: drop the fills not started, hand every slot
             # back (a running fill may wait on one), and again once it ends
             for _, _, fut in jobs:
                 fut.cancel()
-            for slot, _, _ in jobs:
-                slot.release()
+            for slots, _, _ in jobs:
+                for slot in slots:
+                    slot.release()
             wait_futures([fut for _, _, fut in jobs])
-            for slot, _, _ in jobs:
-                slot.release()
+            for slots, _, _ in jobs:
+                for slot in slots:
+                    slot.release()
             raise
         timings["wait_s"] = timings.get("wait_s", 0.0) + wait_s
         timings["dispatch_s"] = timings.get("dispatch_s", 0.0) + dispatch_s
@@ -551,14 +613,15 @@ class InferenceEngine:
 
     # -- corpus cache ----------------------------------------------------------
 
-    def _fingerprint(self, paths):
-        """Corpus identity for the device cache: every file's
-        (path, size, mtime_ns), or None when caching is off/unavailable."""
+    def _fingerprint(self, paths, paths_ref=None):
+        """Corpus identity for the device cache: every file's (path, size,
+        mtime_ns), degraded ends then references, or None when caching is
+        off/unavailable."""
         if self.cache_mb <= 0:
             return None
         try:
             items = []
-            for p in paths:
+            for p in list(paths) + list(paths_ref or []):
                 st = os.stat(p)
                 items.append((p, st.st_size, st.st_mtime_ns))
             return tuple(items)
@@ -589,14 +652,14 @@ class InferenceEngine:
         """Keep as many of the cold pass's mel blocks resident as fit the
         cap (plan order, longest files first); the rest is recorded as a
         cold tail that cached passes re-fill every pass."""
-        resident, cold, used = _resident_split(kept, lambda t: _nbytes(t[2], t[3]),
+        resident, cold, used = _resident_split(kept, lambda t: _nbytes(*t[2:]),
                                                self._cap_bytes())
         if not resident:
             return
-        cold_tail = [(gkey, chunk) for gkey, chunk, _, _ in cold]
+        cold_tail = [(gkey, chunk) for gkey, chunk, *_ in cold]
         if cold_tail:
             # sizing advisory on stderr (stdout carries the results)
-            need_mb = -(-sum(_nbytes(t[2], t[3]) for t in kept) // (1 << 20))
+            need_mb = -(-sum(_nbytes(*t[2:]) for t in kept) // (1 << 20))
             print(
                 f"nisqa_tpu_torch: corpus mels exceed the serving cache cap "
                 f"({self.cache_mb:.0f} MB): {len(resident)}/{len(kept)} batches stay "
@@ -633,68 +696,79 @@ class InferenceEngine:
 
     def _upgrade_to_fused_parts(self, fp, hit):
         """Each part's resident blocks are concatenated on the device into
-        one (k*bs, F, M) block (mode 'mel_fused_parts'); a cached pass then
-        runs one seg+model call per part at batch k*bs. Per-sample compute
-        is independent, so the outputs equal k calls of bs."""
+        one (k*bs, F, M) block per end (mode 'mel_fused_parts'); a cached
+        pass then runs one seg+model call per part at batch k*bs. Per-sample
+        compute is independent, so the outputs equal k calls of bs."""
         parts = []
         for idxs in self._fuse_plan_chunks(hit["plan"]):
-            blocks = [hit["batches"][i] for i in idxs]
-            db = torch.cat([b[2] for b in blocks]) if len(blocks) > 1 else blocks[0][2]
-            n = torch.cat([b[3] for b in blocks]) if len(blocks) > 1 else blocks[0][3]
-            parts.append((blocks[0][0], db, n))
+            batches = [hit["batches"][i] for i in idxs]
+            blocks = [torch.cat(xs) if len(xs) > 1 else xs[0]
+                      for xs in zip(*(b[2:] for b in batches))]
+            parts.append((batches[0][0], *blocks))
         return self._cache_replace(fp, {
             "mode": "mel_fused_parts", "plan": hit["plan"], "parts": parts,
-            "bytes": sum(_nbytes(db, n) for _, db, n in parts)})
+            "bytes": sum(_nbytes(*part[1:]) for part in parts)})
 
     def _upgrade_to_mel_fused(self, fp, hit):
         """One-time upgrade of a fully resident entry: plans of at most
         FUSE_WHOLE_MAX batches move their mel blocks into one flat device
-        tensor (mode 'mel_fused'), whose parts are views; bigger plans
-        upgrade to concatenated parts."""
+        tensor (mode 'mel_fused'), one row per end with the same offsets,
+        whose parts are views; bigger plans upgrade to concatenated parts."""
         plan = hit["plan"]
         if len(plan) > FUSE_WHOLE_MAX:
             return self._upgrade_to_fused_parts(fp, hit)
-        blocks = hit["batches"]
-        flat = torch.cat([b[2].reshape(-1) for b in blocks])
-        ns = torch.cat([b[3] for b in blocks])
-        offsets = np.cumsum([0] + [b[2].numel() for b in blocks])
+        batches = hit["batches"]
+        ends = self._ends()
+        flat = torch.cat([b[2 + 2 * e].reshape(-1) for e in range(ends) for b in batches])
+        flat = flat.view(ends, -1)
+        ns = torch.cat([b[3 + 2 * e] for e in range(ends) for b in batches]).view(ends, -1)
+        offsets = np.cumsum([0] + [b[2].numel() for b in batches])
         bs, M = self.batch_size, self.ms.n_mels
         parts = []
         for idxs in self._fuse_plan_chunks(plan):
             i, j = idxs[0], idxs[-1] + 1
             gkey = plan[i][0]
-            db = flat[int(offsets[i]) : int(offsets[j])].view(
-                (j - i) * bs, self.ms.frames_for_bucket(gkey[1]), M)
-            parts.append((gkey, db, ns[i * bs : j * bs]))
+            blocks = []
+            for e in range(ends):
+                blocks += [flat[e, int(offsets[i]) : int(offsets[j])].view(
+                    (j - i) * bs, self.ms.frames_for_bucket(gkey[1]), M), ns[e, i * bs : j * bs]]
+            parts.append((gkey, *blocks))
         return self._cache_replace(fp, {
             "mode": "mel_fused", "plan": plan, "flat": flat, "ns": ns, "parts": parts,
             "bytes": _nbytes(flat, ns)})
 
     def _run_fused_parts(self, hit):
         """One seg+model call per part, outputs in plan order."""
-        return [self._seg_model(gkey, db, n) for gkey, db, n in hit["parts"]]
+        return [self._seg_model(*part) for part in hit["parts"]]
 
-    def _partial_cached_pass(self, hit, paths, N, fetch, timings):
+    def _partial_cached_pass(self, hit, paths, paths_ref, N, fetch, timings):
         """Cache hit for a corpus that only partly fits ``cache_mb``: the
         resident batches run seg+model over their cached mel blocks first
         (the device works on them while the host scans the tail); then only
-        the cold tail's files are re-scanned, re-filled and re-uploaded."""
+        the cold tail's files (both ends of its pairs) are re-scanned,
+        re-filled and re-uploaded."""
         cold = hit["cold"]
         timings["resident_batches"] = len(hit["batches"])
         timings["cold_batches"] = len(cold)
         td = time.perf_counter()
-        ys = [self._seg_model(gkey, db, n) for gkey, _, db, n in hit["batches"]]
+        ys = [self._seg_model(gkey, *blocks) for gkey, _, *blocks in hit["batches"]]
         timings["dispatch_s"] = time.perf_counter() - td
 
         ts = time.perf_counter()
         tail_idx = sorted({i for _, chunk in cold for i in chunk})
-        audio = [None] * N
-        for i, e in zip(tail_idx, self._scan_transport([paths[i] for i in tail_idx])):
-            audio[i] = e
+
+        def tail(end_paths):
+            out = [None] * N
+            for i, e in zip(tail_idx, self._scan_transport([end_paths[i] for i in tail_idx])):
+                out[i] = e
+            return out
+
+        audio = tail(paths)
+        audio_ref = tail(paths_ref) if paths_ref is not None else None
         timings["scan_plan_s"] = time.perf_counter() - ts
 
-        ys += self._run_cold(cold, audio, paths, timings, keep=False)[0]
-        chunks = [chunk for _, chunk, _, _ in hit["batches"]] + [chunk for _, chunk in cold]
+        ys += self._run_cold(cold, audio, paths, timings, False, audio_ref, paths_ref)[0]
+        chunks = [chunk for _, chunk, *_ in hit["batches"]] + [chunk for _, chunk in cold]
         return self._collect(ys, chunks, N, fetch, timings)
 
     # -- passes ------------------------------------------------------------------
@@ -702,7 +776,9 @@ class InferenceEngine:
     def predict_paths(self, paths, paths_ref=None, fetch=True):
         """Predict for audio paths -> (N, out_dim) float32, in input order.
 
-        Runs one of the regimes of the module docstring; all give the same
+        A double-ended model takes ``paths_ref``, the reference file of each
+        degraded file in ``paths``; a single-ended one takes none. Runs one
+        of the regimes of the module docstring; all give the same
         predictions. ``fetch=False`` synchronises and returns None.
         ``fetch="async"`` returns a zero-argument handle that yields the
         result: on a fully cached pass the readback is deferred into the
@@ -711,13 +787,10 @@ class InferenceEngine:
         eagerly (their staging slots are reused by the next pass) and the
         handle hands the result back.
         """
-        if paths_ref is not None:
-            raise NotImplementedError(
-                "double-ended models (paths_ref) are not ported to nisqa_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 5)")
         if fetch not in (True, False, "async"):
             raise ValueError(f"fetch must be True, False or 'async', got {fetch!r}")
         paths = list(paths)
+        paths_ref = self._check_ref(paths, paths_ref)
         N = len(paths)
         if N == 0:
             empty = np.zeros((0, 5 if self.model.dim else 1), np.float32)
@@ -725,20 +798,19 @@ class InferenceEngine:
                 return lambda: empty
             return empty if fetch else None
         t0 = time.perf_counter()
-        fp = self._fingerprint(paths)
+        fp = self._fingerprint(paths, paths_ref)
         hit = self._corpus_cache.pop(fp, None) if fp is not None else None
         with torch.inference_mode(), matmul_precision(self.precision):
             if hit is not None:
                 self._corpus_cache[fp] = hit  # LRU refresh
-                return self._cached_pass(fp, hit, paths, N, fetch, t0)
-            return self._cold_pass(fp, paths, N, fetch, t0)
+                return self._cached_pass(fp, hit, paths, paths_ref, N, fetch, t0)
+            return self._cold_pass(fp, paths, paths_ref, N, fetch, t0)
 
-    def _cold_pass(self, fp, paths, N, fetch, t0):
-        audio = self._scan_transport(paths)
-        plan = self._plan_for(self._metas_for(audio))
+    def _cold_pass(self, fp, paths, paths_ref, N, fetch, t0):
+        audio, audio_ref, plan = self._scan_plan(paths, paths_ref)
         t_plan = time.perf_counter()
         timings = {}
-        ys, kept = self._run_cold(plan, audio, paths, timings, keep=fp is not None)
+        ys, kept = self._run_cold(plan, audio, paths, timings, fp is not None, audio_ref, paths_ref)
         if fp is not None:
             self._store_cold(fp, plan, kept)
         del kept
@@ -747,11 +819,11 @@ class InferenceEngine:
         self._note_pass("interleaved", N, len(plan), t0, t_plan, time.perf_counter(), timings)
         return (lambda: out) if fetch == "async" else out
 
-    def _cached_pass(self, fp, hit, paths, N, fetch, t0):
+    def _cached_pass(self, fp, hit, paths, paths_ref, N, fetch, t0):
         timings = {}
         if hit.get("cold"):
-            out = self._partial_cached_pass(hit, paths, N, True if fetch == "async" else fetch,
-                                            timings)
+            out = self._partial_cached_pass(hit, paths, paths_ref, N,
+                                            True if fetch == "async" else fetch, timings)
             self._note_pass("cached_partial", N, len(hit["plan"]), t0, t0,
                             time.perf_counter(), timings)
             return (lambda: out) if fetch == "async" else out
@@ -759,7 +831,7 @@ class InferenceEngine:
         if hit["mode"] == "mel" and self._fuse_cached(hit["plan"]):
             hit = self._upgrade_to_mel_fused(fp, hit)
         if hit["mode"] == "mel":
-            ys = [self._seg_model(gkey, db, n) for gkey, _, db, n in hit["batches"]]
+            ys = [self._seg_model(gkey, *blocks) for gkey, _, *blocks in hit["batches"]]
         else:
             ys = self._run_fused_parts(hit)
         timings["dispatch_s"] = time.perf_counter() - td
@@ -831,26 +903,29 @@ class InferenceEngine:
 
     # -- warmup ------------------------------------------------------------------
 
-    def warmup(self, paths):
-        """Run each (sr, bucket, transport) shape ``paths`` need once, on
-        zero batches: builds the kernel library, prepares the constants,
-        grows the pinned staging ring to the corpus's largest batch, and, for
-        the regime the cache will take, runs the seg+model shapes of the
-        cached passes (the fused parts' k*bs rows included). Returns the
-        shapes run as (stage, gkey, rows)."""
+    def warmup(self, paths, paths_ref=None):
+        """Run each (sr, bucket, transport) shape ``paths`` (and, for a
+        double-ended model, ``paths_ref``) need once, on zero batches:
+        builds the kernel library, prepares the constants, grows the pinned
+        staging rings to the corpus's largest batch, and, for the regime the
+        cache will take, runs the seg+model shapes of the cached passes (the
+        fused parts' k*bs rows included). Returns the shapes run as (stage,
+        gkey, rows)."""
         paths = list(paths)
+        paths_ref = self._check_ref(paths, paths_ref)
         if not paths:
             return []
         ms, bs, M = self.ms, self.batch_size, self.ms.n_mels
-        plan = self._plan_for(self._metas_for(self._scan_transport(paths)))
+        ends = self._ends()
+        plan = self._scan_plan(paths, paths_ref)[2]
         gkeys = sorted({gkey for gkey, _ in plan})
 
         def full_n(sr, bucket):
             hop = int(sr * ms.hop_s)
             return ((bucket - 1) * ms.seg_hop + ms.seg_length - 1) * hop
 
-        def block_bytes(bucket):  # mel block float32 + n int64, as the cache holds them
-            return bs * ms.frames_for_bucket(bucket) * M * 4 + bs * 8
+        def block_bytes(bucket):  # mel blocks float32 + n int64 per end, as the cache holds them
+            return ends * (bs * ms.frames_for_bucket(bucket) * M * 4 + bs * 8)
 
         cap = self._cap_bytes()
         resident, _, _ = _resident_split(plan, lambda e: block_bytes(e[0][1]), cap)
@@ -870,23 +945,28 @@ class InferenceEngine:
             lens = {gkey: frame_geometry(ms, gkey[0], gkey[1])[4] for gkey in gkeys}
             for kind in {gkey[2] for gkey in gkeys}:
                 longest = max(lens[g] for g in gkeys if g[2] == kind)
-                for _ in range(RING_SLOTS):
-                    self._host_buf(kind).acquire(longest)
-                for slot in self._rings[kind]:
-                    slot.release()
+                for end in range(ends):
+                    ring = [self._host_buf(kind, end) for _ in range(RING_SLOTS)]
+                    for slot in ring:
+                        slot.acquire(longest)
+                    for slot in ring:
+                        slot.release()
             for gkey in gkeys:
-                slot = self._host_buf(gkey[2])
-                buf, n = slot.acquire(lens[gkey])
-                buf.fill(0)
-                n.fill(full_n(gkey[0], gkey[1]))
-                audio_d, n_d = self._upload(slot, lens[gkey])
-                self._seg_model(gkey, self._mel(gkey, audio_d, n_d), n_d)
+                blocks = []
+                for end in range(ends):
+                    slot = self._host_buf(gkey[2], end)
+                    buf, n = slot.acquire(lens[gkey])
+                    buf.fill(0)
+                    n.fill(full_n(gkey[0], gkey[1]))
+                    audio_d, n_d = self._upload(slot, lens[gkey])
+                    blocks += [self._mel(gkey, audio_d, n_d), n_d]
+                self._seg_model(gkey, *blocks)
                 warmed.append(("cold", gkey, bs))
             for gkey, rows in seg_shapes:
                 db = torch.zeros((rows, ms.frames_for_bucket(gkey[1]), M), device=self.device)
                 n = torch.full((rows,), full_n(gkey[0], gkey[1]), dtype=torch.int64,
                                device=self.device)
-                self._seg_model(gkey, db, n)
+                self._seg_model(gkey, *(db, n) * ends)
                 warmed.append(("seg", gkey, rows))
             self._sync()
         return warmed

@@ -79,6 +79,10 @@ class NisqaTorch:
 
     def _load_datasets(self):
         mode = self.args["mode"]
+        if self.args["double_ended"] and mode in ("predict_file", "predict_dir"):
+            raise ValueError(
+                f"NISQA_DE scores a degraded file against its reference: mode {mode} has no "
+                "reference column; use predict_csv with csv_deg and csv_ref")
         if mode == "predict_file":
             deg = self.args["deg"]
             df = Table({"deg": np.array([os.path.basename(deg)], dtype=object)})
@@ -88,6 +92,8 @@ class NisqaTorch:
         elif mode == "predict_csv":
             data_dir = self.args.get("data_dir") or ""
             df = Table.read_csv(os.path.join(data_dir, self.args["csv_file"]))
+            if self.args["double_ended"] and not self.args.get("csv_ref"):
+                raise ValueError("NISQA_DE needs csv_ref, the csv column of the reference files")
             dcon = None
             if self.args.get("csv_con"):
                 dcon = Table.read_csv(os.path.join(data_dir, self.args["csv_con"]))

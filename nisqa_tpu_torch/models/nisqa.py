@@ -1,17 +1,20 @@
-"""Top-level model families: NISQA and NISQA_DIM.
+"""Top-level model families: NISQA, NISQA_DIM and NISQA_DE.
 
 Counterpart of ``nisqa_tpu/models/nisqa.py``:
 
   * NISQA     : framewise -> td -> td_2 -> pool                  -> (B, 1)
   * NISQA_DIM : shared trunk + 5 pooling heads [mos,noi,dis,col,loud]
                                                                  -> (B, 5)
+  * NISQA_DE  : shared framewise -> td on the degraded and the reference
+                end, alignment of the reference to the degraded end,
+                fusion, td_2, pool                               -> (B, 1)
 
 The module tree follows the reference's state-dict names (``cnn.model.*``,
-``time_dependency.model.*``, ``time_dependency_2``, ``pool.model.*`` /
-``pool_layers.{i}.model.*``), so released ``.tar`` checkpoints load with
-``strict=True`` and no key converter. Every framewise, time-dependency and
-pooling option of the single-ended models is here; NISQA_DE is not ported
-yet (ROADMAP.md Queue 1 item 5).
+``time_dependency.model.*``, ``align.att.*``, ``fuse.lin_fusion``,
+``time_dependency_2``, ``pool.model.*`` / ``pool_layers.{i}.model.*``), so
+released ``.tar`` checkpoints load with ``strict=True`` and no key
+converter. Every framewise, time-dependency, alignment, fusion and pooling
+option is here.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .align import Alignment, Fusion
 from .framewise import Framewise
 from .pooling import Pooling
 from .td import TimeDependency
@@ -38,8 +42,13 @@ class NISQA(nn.Module):
         self.cfg = dict(cfg)
         self.cnn = Framewise(cfg)
         self.time_dependency = TimeDependency(self.cnn.fan_out, cfg, "td")
-        self.time_dependency_2 = TimeDependency(self.time_dependency.fan_out, cfg, "td_2")
+        self.time_dependency_2 = TimeDependency(self._td2_in(cfg), cfg, "td_2")
         self._init_pool(cfg)
+
+    def _td2_in(self, cfg) -> int:
+        """Input width of td_2. NISQA_DE builds its alignment and fusion
+        here, so they register before td_2 as in the reference."""
+        return self.time_dependency.fan_out
 
     def _init_pool(self, cfg):
         self.pool = Pooling(self.time_dependency_2.fan_out, 1, cfg.get("pool", "att"),
@@ -72,6 +81,43 @@ class NISQA_DIM(NISQA):
         return torch.cat([pool(h, n_wins) for pool in self.pool_layers], dim=1)
 
 
+class NISQA_DE(NISQA):
+    """forward(x (B, T, 2, n_mels, seg_length), n_wins (B, 2)) -> (B, 1),
+    channel 0 the degraded end and channel 1 the reference, as in the
+    reference; :meth:`forward_ends` takes the two ends apart."""
+
+    name = "NISQA_DE"
+    double_ended = True
+
+    def _td2_in(self, cfg) -> int:
+        d = self.time_dependency.fan_out
+        self.align = Alignment(cfg.get("de_align"), cfg.get("de_align_apply", "hard"), d, d)
+        self.fuse = Fusion(cfg.get("de_fuse"), d, cfg.get("de_fuse_dim"))
+        return self.fuse.fan_out
+
+    def forward(self, x, n_wins):
+        return self.forward_ends(x[:, :, 0], n_wins[:, 0], x[:, :, 1], n_wins[:, 1])
+
+    def trunk_ends(self, deg, n_deg, ref, n_ref):
+        """The shared framewise + td features of both ends, (B, T, D) each.
+        In eval every stage acts row by row, so the trunk runs once over
+        both ends' 2B rows. In train mode it runs twice, degraded end first,
+        so that BN's running statistics take the reference's serial
+        update."""
+        if self.training:
+            return (self.time_dependency(self.cnn(deg), n_deg),
+                    self.time_dependency(self.cnn(ref), n_ref))
+        n = torch.cat([n_deg, n_ref])
+        return self.time_dependency(self.cnn(torch.cat([deg, ref])), n).split(deg.shape[0])
+
+    def forward_ends(self, deg, n_deg, ref, n_ref):
+        """(deg (B, T, M, S), n_deg (B,), ref (B, T, M, S), n_ref (B,)) ->
+        (B, 1)."""
+        fd, fr = self.trunk_ends(deg, n_deg, ref, n_ref)
+        h = self.time_dependency_2(self.fuse(fd, self.align(fd, fr, n_ref)), n_deg)
+        return self.pool(h, n_deg)
+
+
 def build_model(model_name: str, model_args: dict) -> nn.Module:
     """Factory over the reference's model names."""
     if model_name == "NISQA":
@@ -79,5 +125,5 @@ def build_model(model_name: str, model_args: dict) -> nn.Module:
     if model_name == "NISQA_DIM":
         return NISQA_DIM(model_args)
     if model_name == "NISQA_DE":
-        raise NotImplementedError("NISQA_DE is not ported yet (ROADMAP.md Queue 1 item 5)")
+        return NISQA_DE(model_args)
     raise NotImplementedError(f"Model not available: {model_name}")

@@ -465,7 +465,11 @@ def test_filler_ring_stress(tmp_path, ckpt):
 
 
 def test_double_ended_not_ported(tmp_path, ckpt):
+    """Reference files reach a single-ended model's engine only by mistake:
+    it refuses them (double-ended serving: tests/test_torch_de_engine.py)."""
     names = _write_corpus(tmp_path, n=2)
     paths = [str(tmp_path / n) for n in names]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        _engine(ckpt, batch_size=2).predict_paths(paths[:1], paths[1:])
+    eng = _engine(ckpt, batch_size=2)
+    for call in (eng.predict_paths, eng.plan, eng.warmup):
+        with pytest.raises(ValueError, match="single-ended"):
+            call(paths[:1], paths[1:])

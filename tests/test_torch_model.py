@@ -100,7 +100,8 @@ def test_state_dict_from_jax_equals_params_to_torch(key):
 
 
 @pytest.mark.parametrize("model_name,extra", [
-    ("NISQA_DE", {}),
+    ("NISQA_DE", {"de_align": "bahd", "de_align_apply": "soft", "de_fuse": "+/-",
+                  "de_fuse_dim": 12}),
     ("NISQA", {"td": "lstm", "td_lstm_h": 8, "td_lstm_num_layers": 1,
                "td_lstm_bidirectional": False}),
     ("NISQA", {"cnn_model": "standard", "ms_n_mels": 48, "ms_seg_length": 15,
@@ -109,14 +110,10 @@ def test_state_dict_from_jax_equals_params_to_torch(key):
     ("NISQA", {"td_sa_pos_enc": True}),
 ], ids=["de", "lstm", "standard_cnn", "avg_pool", "pos_enc"])
 def test_unported_families_raise(model_name, extra):
-    """NISQA_DE still raises, naming its ROADMAP item. The single-ended
-    families that once raised here build, with the state-dict keys of the
-    JAX package's converter (the zoo's numerics: tests/test_torch_zoo.py)."""
+    """The families that once raised here build, with the state-dict keys
+    of the JAX package's converter (their numerics: tests/test_torch_zoo.py
+    and, for NISQA_DE, tests/test_torch_de.py)."""
     margs = model_args_from_ckpt_args({**TINY_ARGS, "model": model_name, **extra})
-    if model_name == "NISQA_DE":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            build_model(model_name, margs)
-        return
     jmodel = build_jax_model(model_name, margs)
     params, state = jmodel.init(jax.random.PRNGKey(0))
     assert sorted(build_model(model_name, margs).state_dict()) == \

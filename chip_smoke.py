@@ -64,8 +64,21 @@ never prints its last line):
      forward, and a cached pass at the default precision;
      then each scorer x apply of the alignment once at T 1,300 and bs 32
      with random weights: finite outputs, time and peak device memory;
-  11. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
-     of every port module loads no jax, pandas, yaml, matplotlib or
+  11. training: ``python -m nisqa_tpu_torch.run_train --yaml`` (through its
+     ``main``) on the shipped ``train_nisqa_cnn_sa_ap.yaml`` at full width:
+     NISQA from scratch for 2 epochs at bs 32 over phase 5's corpus in a
+     labelled CSV (52 files db TRAIN, the 16 kHz ones among them, 16 db VAL;
+     MOS from each file's pitch): finite losses, one kernel launch per train
+     step and per cold validation batch, both epochs' ``.tar`` files load
+     with ``strict=True``, the final one served through ``run_predict``
+     gives the loop's last validation pass; per epoch train audio-s/s, step
+     and validation times, peak memory, and the idle share of a warm epoch;
+     one train step's loss and gradients with the kernel and the twin
+     front-end at "highest"; then one epoch of the multidimensional finetune
+     from phase 5's ``.tar`` and one of ``train_nisqa_double_ended.yaml`` on
+     32 of phase 10's pairs (two launches per step);
+  12. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
+     of every port module loads no jax, pandas, yaml, tqdm, matplotlib or
      ``nisqa_tpu``.
 
 The last two lines are a JSON record of the kernel and
@@ -109,6 +122,7 @@ PASS_BOUND = 1e-3                     # kernel vs twin front-end predictions at 
 DEFAULT_PASS_BOUND = 1e-2             # the same at the default precision (TF32, bf16 DFT)
 WARM_REPS = 5                         # timed warm passes per engine
 SERVE_BOUND = 1e-5                    # every serving regime vs the cold pass, absolute
+TRAIN_LOSS_BOUND, TRAIN_GRAD_BOUND = 1e-4, 1e-3  # train step, kernel vs twin front-end
 BF16_PEAK, TF32_PEAK, HBM_RATE = 989e12, 495e12, 3.35e12  # H100 SXM data sheet, dense
 
 
@@ -939,25 +953,258 @@ def de_scorers(seed: int, card: str):
     torch.cuda.empty_cache()
 
 
+def learnable_mos(paths):
+    """MOS from each file's dominant pitch (the corpus's f0 is 100-300 Hz),
+    mapped to [1, 5]: a spectral property the CNN can learn
+    (``tools/bench_train.py``'s recipe), estimated from the audio."""
+    from nisqa_tpu_torch.audio.wav import read_wav
+
+    mos = []
+    for p in paths:
+        y, sr = read_wav(p)
+        seg = y[: int(0.5 * sr)].astype(np.float64)
+        spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+        lo, hi = int(80 * len(seg) / sr), int(350 * len(seg) / sr)
+        f0 = (lo + int(np.argmax(spec[lo:hi]))) * sr / len(seg)
+        mos.append(float(np.clip(1.0 + 4.0 * (f0 - 100.0) / 200.0, 1.0, 5.0)))
+    return np.round(mos, 2)
+
+
+def train_config(name: str, corpus: str, out_dir: str, csv_file: str, **over) -> str:
+    """A shipped training YAML with the run's corpus, output and overrides;
+    returns the path of the written YAML."""
+    from nisqa_tpu_torch.compat import yaml_lite
+
+    cfg = yaml_lite.load(os.path.join(REPO, "nisqa_tpu", "config", name))
+    cfg.update({"name": name[: -len(".yaml")], "data_dir": corpus, "output_dir": out_dir,
+                "csv_file": csv_file, "csv_db_train": ["TRAIN"], "csv_db_val": ["VAL"],
+                "tr_bs": BATCH, "tr_bs_val": BATCH, "seed": 0, **over})
+    path = os.path.join(out_dir, name)
+    yaml_lite.dump(cfg, path)
+    return path
+
+
+def run_training(cfg_path: str, label: str, card: str):
+    """``run_train.main`` on ``cfg_path`` with the kernel's count zeroed just
+    before and read just after. Returns (runner, launches, results rows,
+    run directory, wall s)."""
+    from nisqa_tpu_torch import run_train
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+
+    out_dir = os.path.dirname(cfg_path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_dft_mel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    runner = run_train.main(["--yaml", cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_dft_mel.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run_dir = next(os.path.join(out_dir, d) for d in os.listdir(out_dir)
+                   if os.path.isdir(os.path.join(out_dir, d)))
+    with open(os.path.join(run_dir, os.path.basename(run_dir) + "__results.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    print(f"{label}: {len(rows)} epochs in {wall:.3f} s wall (set-up included), losses {losses}, "
+          f"{runner.train_engine.steps} train steps, fused_dft_mel launches={launches}, peak "
+          f"device memory {peak_gb:.3f} GB on {card}", flush=True)
+    check(len(rows) == runner.args["tr_epochs"] and all(math.isfinite(v) for v in losses),
+          f"{label}: results rows {len(rows)}, losses {losses}")
+    return runner, launches, rows, run_dir, wall
+
+
+def check_tars(run_dir: str, n: int, label: str):
+    """Every epoch's .tar loads into the port with strict=True, beside its .pt."""
+    from nisqa_tpu_torch.compat.checkpoint import load_model_from_tar
+
+    tars = sorted(f for f in os.listdir(run_dir) if f.endswith(".tar"))
+    check(len(tars) == n, f"{label}: {len(tars)} .tar files for {n} epochs")
+    for t in tars:
+        load_model_from_tar(os.path.join(run_dir, t), "cuda")  # strict=True
+        check(os.path.exists(os.path.join(run_dir, t[: -len(".tar")] + ".pt")),
+              f"{label}: no full-state .pt beside {t}")
+    return os.path.join(run_dir, tars[-1])
+
+
+def train_step_kernel_vs_twin(runner, card: str):
+    """One train step's loss and gradients from the same weights and batch
+    (32 files at 48 kHz), with the kernel front-end and with the twin, at
+    "highest"; the weights and BN statistics are restored after."""
+    from nisqa_tpu_torch.data.pipeline import matmul_precision
+    from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
+    from nisqa_tpu_torch.train.loop import _bias_losses
+
+    eng, model, ds = runner.train_engine, runner.model, runner.ds_train
+    paths = ds.paths()
+    entries = eng._entries(paths)
+    idx = [i for i, e in enumerate(entries) if e[2] == 48000][:BATCH]
+    kind = "i16" if all(entries[i][0] == "native" for i in idx) else "f32"
+    bias = _bias_losses(runner, 1)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step(dft_mel):
+        model.load_state_dict(sd0)
+        model.train()
+        eng.dft_mel = dft_mel
+        eng.generator.manual_seed(0)  # the same dropout masks
+        segs, y, b = eng._batch(idx, paths, None, entries, None, ds.targets(), bias, BATCH, kind)
+        with matmul_precision("highest"):
+            loss, _ = eng._loss(segs, y, b)
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    try:
+        loss_k, g_k = step(fused_dft_mel)
+        loss_t, g_t = step(dft_mel_reference)
+    finally:
+        eng.dft_mel = fused_dft_mel
+        model.load_state_dict(sd0)
+        model.zero_grad(set_to_none=True)
+    rel = abs(loss_k - loss_t) / abs(loss_t)
+    worst = max((float((g_k[k] - g_t[k]).abs().max()) / max(1.0, float(g_t[k].abs().max())), k)
+                for k in g_t)
+    print(f"train step kernel vs twin front-end at 'highest' ({len(idx)} files, {kind}): loss "
+          f"{loss_k} vs {loss_t}, rel {rel:.3e} (bound {TRAIN_LOSS_BOUND}); worst gradient "
+          f"{worst[1]} {worst[0]:.3e} of max(1, max|twin|) (bound {TRAIN_GRAD_BOUND}) on {card}",
+          flush=True)
+    check(rel <= TRAIN_LOSS_BOUND, f"train-step loss: kernel vs twin rel {rel}")
+    check(worst[0] <= TRAIN_GRAD_BOUND, f"train-step gradient {worst[1]} off by {worst[0]}")
+
+
+def training(tmp: str, dim_tar: str, paths, card: str):
+    """Phase 11: training through ``python -m nisqa_tpu_torch.run_train``'s
+    ``main``. Returns {run: kernel launches}."""
+    from nisqa_tpu_torch import run_predict
+    from nisqa_tpu_torch.train.loop import _bias_losses, _n_of
+
+    corpus = os.path.dirname(paths[0])
+    launches = {}
+    # the corpus of phase 5 in a labelled CSV: every 4th 48 kHz file is db VAL,
+    # the rest (the 16 kHz files among them) db TRAIN
+    mos = learnable_mos(paths)
+    rng = np.random.default_rng(1)
+    names = [os.path.basename(p) for p in paths]
+    dbs = ["VAL" if "_48k_" in n and i % 4 == 3 else "TRAIN" for i, n in enumerate(names)]
+    with open(os.path.join(corpus, "train.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["filepath_deg", "db", "mos", "noi", "dis", "col", "loud"])
+        for n, db, m in zip(names, dbs, mos):
+            w.writerow([n, db, m, *np.round(np.clip(m + rng.normal(0, 0.3, 4), 1, 5), 2)])
+
+    # the main path: NISQA from scratch, full width, 2 epochs at bs 32
+    out = os.path.join(tmp, "train_nisqa")
+    os.makedirs(out)
+    cfg = train_config("train_nisqa_cnn_sa_ap.yaml", corpus, out, "train.csv",
+                       csv_deg="filepath_deg", tr_epochs=2)
+    runner, launches["train_nisqa_2_epochs"], rows, run_dir, _ = run_training(
+        cfg, "train NISQA (train_nisqa_cnn_sa_ap.yaml, full width, bs 32)", card)
+    eng = runner.train_engine
+    train_audio_s = sum(_n_of(e) / e[2] for e in eng._entries(runner.ds_train.paths()))
+    val_paths = runner.ds_val.paths()
+    n_val = len(runner.engine.plan(val_paths))
+    check(runner.engine.stats["last"]["mode"] == "cached",
+          f"the second validation pass ran {runner.engine.stats['last']['mode']}")
+    check(launches["train_nisqa_2_epochs"] == eng.steps + n_val,
+          f"{launches['train_nisqa_2_epochs']} launches for {eng.steps} train steps and "
+          f"{n_val} cold validation batches")
+    for h, row in zip(eng.history, rows):
+        print(f"train NISQA epoch {h['epoch'] + 1}: {h['files']} files, {train_audio_s:.1f} "
+              f"audio-s in {h['wall_s']:.4f} s = {train_audio_s / h['wall_s']:.1f} train audio-s/s; "
+              f"{h['steps']} steps, mean step {1e3 * h['wall_s'] / h['steps']:.2f} ms; validation "
+              f"pass {h['val_s']:.4f} s ({len(val_paths)} files); epoch wall {row['ep_runtime']} s; "
+              f"loss {row['loss']} on {card}", flush=True)
+    final_tar = check_tars(run_dir, 2, "train NISQA")
+
+    # the final .tar served through run_predict gives the loop's last validation pass
+    with open(os.path.join(corpus, "val.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["filepath_deg"])
+        w.writerows([os.path.basename(p)] for p in val_paths)
+    pred_dir = os.path.join(tmp, "train_pred")
+    os.makedirs(pred_dir)
+    served = run_predict.main(["--mode", "predict_csv", "--pretrained_model", final_tar,
+                               "--csv_file", "val.csv", "--csv_deg", "filepath_deg", "--data_dir",
+                               corpus, "--output_dir", pred_dir, "--bs", str(BATCH)])
+    diff = float(np.abs(np.asarray(served.ds_val.df["mos_pred"])
+                        - np.asarray(runner.ds_val.df["mos_pred"])).max())
+    print(f"final .tar through run_predict vs the loop's last validation pass: max_abs_diff={diff} "
+          f"bound={SERVE_BOUND}", flush=True)
+    check(diff <= SERVE_BOUND, f"the served final .tar differs from the loop's validation by {diff}")
+
+    train_step_kernel_vs_twin(runner, card)
+
+    # the device's idle share over one warm epoch (a third epoch of the same run)
+    bias = _bias_losses(runner, 1)
+    busy, wall, idle, _ = idle_share(
+        lambda: eng.run_epoch(runner.ds_train, bias, runner.args["tr_lr"], 2, BATCH))
+    idle_txt = ("not measured (no device activity in the trace)" if idle is None else
+                f"{idle:.4f} (device busy {busy:.4f} s of {wall:.4f} s, torch.profiler)")
+    print(f"train NISQA warm epoch, profiled: idle share {idle_txt} on {card}", flush=True)
+    del runner, eng, served
+
+    # NISQA_DIM: one epoch of the multidimensional finetune from phase 5's .tar
+    out = os.path.join(tmp, "train_dim")
+    os.makedirs(out)
+    cfg = train_config("finetune_nisqa_multidimensional.yaml", corpus, out, "train.csv",
+                       csv_deg="filepath_deg", tr_epochs=1, pretrained_model=dim_tar)
+    runner, launches["train_dim_1_epoch"], _, run_dir, _ = run_training(
+        cfg, "finetune NISQA_DIM (finetune_nisqa_multidimensional.yaml from g2_dim, bs 32)", card)
+    n_val = len(runner.engine.plan(runner.ds_val.paths()))
+    check(runner.model.name == "NISQA_DIM", f"the finetune built {runner.model.name}")
+    check(launches["train_dim_1_epoch"] == runner.train_engine.steps + n_val,
+          f"DIM finetune: {launches['train_dim_1_epoch']} launches for "
+          f"{runner.train_engine.steps} steps and {n_val} validation batches")
+    check_tars(run_dir, 1, "DIM finetune")
+    del runner
+
+    # NISQA_DE: one epoch on 32 pairs of phase 10's corpus, two launches per step
+    de_corpus = os.path.join(tmp, "de_wavs")
+    deg = [f"de_48k_{i:03d}_deg.wav" for i in range(32)]
+    de_mos = learnable_mos([os.path.join(de_corpus, d) for d in deg])
+    with open(os.path.join(de_corpus, "train_pairs.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["deg", "ref", "db", "mos"])
+        for i, (d, m) in enumerate(zip(deg, de_mos)):
+            w.writerow([d, d.replace("_deg", "_ref"), "VAL" if i % 4 == 3 else "TRAIN", m])
+    out = os.path.join(tmp, "train_de")
+    os.makedirs(out)
+    cfg = train_config("train_nisqa_double_ended.yaml", de_corpus, out, "train_pairs.csv",
+                       csv_deg="deg", csv_ref="ref", tr_epochs=1)
+    runner, launches["train_de_1_epoch"], _, run_dir, _ = run_training(
+        cfg, "train NISQA_DE (train_nisqa_double_ended.yaml, 24 + 8 pairs, bs 32)", card)
+    n_val = len(runner.engine.plan(runner.ds_val.paths(), runner.ds_val.paths_ref()))
+    check(launches["train_de_1_epoch"] == 2 * (runner.train_engine.steps + n_val),
+          f"DE: {launches['train_de_1_epoch']} launches for {runner.train_engine.steps} steps "
+          f"and {n_val} validation batches, two ends each")
+    check_tars(run_dir, 1, "DE")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
 def import_check():
     """The port loaded nothing of JAX or of the JAX package in this run, and
-    importing it and all its submodules in a fresh process loads no jax,
-    pandas, yaml, matplotlib or ``nisqa_tpu`` module (the card's machine has
+    importing it and all its submodules in a fresh process after torch loads
+    no jax, pandas, yaml, tqdm, matplotlib or ``nisqa_tpu`` module (the card's machine has
     them all; ``eval/report.py`` imports matplotlib only to plot)."""
     banned = ("jax", "jaxlib", "nisqa_tpu")
     here = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     check(not here, f"this run imported JAX code: {here[:10]}")
-    code = ("import sys, importlib, pkgutil\n"
+    code = ("import sys, importlib, pkgutil, torch\n"
+            "base = set(sys.modules)  # what torch itself loads (it takes tqdm where installed)\n"
             "import nisqa_tpu_torch\n"
             "for m in pkgutil.walk_packages(nisqa_tpu_torch.__path__, 'nisqa_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml', 'matplotlib')))\n")
+            "print(sorted(m for m in sys.modules if m not in base and m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml', 'tqdm', 'matplotlib')))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
                        env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
     check(r.returncode == 0, f"importing the port failed: {r.stderr[-2000:]}")
     check(r.stdout.strip() == "[]", f"importing the port loaded {r.stdout.strip()}")
-    print("imports: no jax, jaxlib, nisqa_tpu, pandas, yaml or matplotlib module loaded by the port",
+    print("imports: no jax, jaxlib, nisqa_tpu, pandas, yaml, tqdm or matplotlib module loaded by "
+          "the port",
           flush=True)
 
 
@@ -988,7 +1235,7 @@ def main(argv=None):
     print(f"SASS: {n_hgmma} HGMMA (wgmma) instructions", flush=True)
     check(n_hgmma > 0, "no HGMMA instruction in the kernel library: the tensor cores are unused")
 
-    # 3-10
+    # 3-11
     results, main, tts = kernel_vs_twin(opts.seed, opts.reps, card)
     meta, sd = model_golden("g2_dim")
     meta_tts, sd_tts = model_golden("g3_tts")
@@ -1002,6 +1249,7 @@ def main(argv=None):
         csv_launches = csv_and_evaluate(tmp, tar, paths, y_dir, opts.seed, card)
         de_launches = de_path(tmp, opts.seed, card)
         de_scorers(opts.seed, card)
+        train_launches = training(tmp, tar, paths, card)
     import_check()
 
     fast, exact = main["fast"], main["exact"]
@@ -1030,7 +1278,8 @@ def main(argv=None):
         "tts_exact_bound_ms": tts["exact"]["bound_ms"],
         "tts_exact_bound_by": tts["exact"]["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
-                             "tts_predict_dir": tts_launches, **csv_launches, **de_launches},
+                             "tts_predict_dir": tts_launches, **csv_launches, **de_launches,
+                             **train_launches},
     }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)

@@ -57,8 +57,9 @@ from .front_end import frame_geometry, mel_fn, seg_fn
 # Cached passes over plans of at most FUSE_WHOLE_MAX batches keep their mel
 # blocks in one flat device tensor (mode "mel_fused"); bigger plans keep one
 # concatenated block per part (mode "mel_fused_parts"). Both run the parts of
-# _fuse_plan_chunks. The names follow the JAX engine (pipeline.py:315-323).
-FUSE_WHOLE_MAX = 32
+# _fuse_plan_chunks. The names and the NISQA_FUSE_WHOLE_MAX knob follow the
+# JAX engine; outputs are the same either way.
+FUSE_WHOLE_MAX = int(os.environ.get("NISQA_FUSE_WHOLE_MAX", "32"))
 # per-part working-set budget (segment tensor + attention score estimate, bytes)
 _FUSE_CHUNK_BYTES = 512 * (1 << 20)
 # pinned staging slots per transport: the filler runs at most this many
@@ -800,11 +801,25 @@ class InferenceEngine:
         t0 = time.perf_counter()
         fp = self._fingerprint(paths, paths_ref)
         hit = self._corpus_cache.pop(fp, None) if fp is not None else None
-        with torch.inference_mode(), matmul_precision(self.precision):
+        with self._serving():
             if hit is not None:
                 self._corpus_cache[fp] = hit  # LRU refresh
                 return self._cached_pass(fp, hit, paths, paths_ref, N, fetch, t0)
             return self._cold_pass(fp, paths, paths_ref, N, fetch, t0)
+
+    @contextlib.contextmanager
+    def _serving(self):
+        """A pass's context: eval mode (a model in training, e.g. between
+        the epochs of the train loop, gets its mode back after the pass),
+        no autograd and the engine's precision. The corpus mel cache stays
+        valid across weight updates: mels do not depend on the weights."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.inference_mode(), matmul_precision(self.precision):
+                yield
+        finally:
+            self.model.train(was_training)
 
     def _cold_pass(self, fp, paths, paths_ref, N, fetch, t0):
         audio, audio_ref, plan = self._scan_plan(paths, paths_ref)
@@ -941,7 +956,7 @@ class InferenceEngine:
             seg_shapes = [(gkey, bs) for gkey in gkeys]
 
         warmed = []
-        with torch.inference_mode(), matmul_precision(self.precision):
+        with self._serving():
             lens = {gkey: frame_geometry(ms, gkey[0], gkey[1])[4] for gkey in gkeys}
             for kind in {gkey[2] for gkey in gkeys}:
                 longest = max(lens[g] for g in gkeys if g[2] == kind)

@@ -1,11 +1,13 @@
-"""Runtime orchestrator for prediction and evaluation: args -> checkpoint ->
-engine -> CSV -> metrics.
+"""Runtime orchestrator: args -> model -> datasets -> train / predict /
+evaluate.
 
 Counterpart of ``nisqa_tpu/model.py::NisqaTPU`` for the modes predict_file,
-predict_dir and predict_csv and for ``evaluate``: the same flat args dict,
-the checkpoint args as the base config that runtime args overwrite, the DIM
-/ DE flags, the same ``NISQA_results.csv`` (every input column in input
-order, the ``*_pred`` columns, ``model``) and the same metrics, on the
+predict_dir, predict_csv and main (training), and for ``evaluate``: the same
+flat args dict, the checkpoint args as the base config that runtime args
+overwrite, the same argument normalisation (DIM / DE flags; NISQA_DIM has no
+``csv_mos_*`` column, a single-ended model no ``csv_ref``), the same
+``NISQA_results.csv`` (every input column in input order, the ``*_pred``
+columns, ``model``), the same per-run YAML and the same metrics, on the
 port's pandas-free :class:`.data.dataset.Table`.
 
 The device is the args key ``tr_device`` (the reference's): None means
@@ -15,6 +17,7 @@ explicit ``tr_device="cpu"`` runs on the CPU, with the kernels' plain twins.
 
 from __future__ import annotations
 
+import datetime
 import os
 from glob import glob
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from .audio import codec
+from .compat import yaml_lite
 from .compat.checkpoint import build_from_args, load_torch_checkpoint
 from .data.dataset import SpeechDataset, Table
 from .data.pipeline import InferenceEngine, MsConfig
@@ -42,37 +46,52 @@ def resolve_device(tr_device) -> torch.device:
 
 class NisqaTorch:
     """``NisqaTorch(args).predict()`` / ``.evaluate()`` for modes
-    predict_file, predict_dir and predict_csv."""
+    predict_file, predict_dir and predict_csv; ``.train()`` for mode main."""
 
     def __init__(self, args: dict):
         self.args = dict(args)
         self.args.setdefault("mode", "main")
+        self.runinfos = {}
         self.engine = None
         self._load_model()
         self._load_datasets()
+        self.args["now"] = datetime.datetime.today()
+        if self.args["mode"] == "main":
+            print(yaml_lite.dumps(self.args))
 
     def _load_model(self):
-        path = self.args.get("pretrained_model")
-        if not path:
-            raise ValueError(
-                "pretrained_model is required: the port predicts from a checkpoint "
-                "(training is not ported yet, ROADMAP.md Queue 1 item 6)")
-        if not os.path.isabs(path):
-            path = os.path.join(os.getcwd(), path)
-        ckpt = load_torch_checkpoint(path)
-        # checkpoint args are the base config; runtime args overwrite
-        args = dict(ckpt["args"])
-        args.update(self.args)
-        self.args = args
+        ckpt = None
+        if self.args.get("pretrained_model"):
+            path = self.args["pretrained_model"]
+            if not os.path.isabs(path):
+                path = os.path.join(os.getcwd(), path)
+            ckpt = load_torch_checkpoint(path)
+            # checkpoint args are the base config; runtime args overwrite
+            args = dict(ckpt["args"])
+            args.update(self.args)
+            self.args = args
+        args = self.args
         args["dim"] = args.get("model") == "NISQA_DIM"
+        if args["dim"]:
+            args["csv_mos_train"] = None
+            args["csv_mos_val"] = None
         args["double_ended"] = args.get("model") == "NISQA_DE"
+        if not args["double_ended"]:
+            args["csv_ref"] = None
 
         self.device = resolve_device(args.get("tr_device"))
-        model = build_from_args(args)
-        print("Model architecture: " + args["model"])
-        model.load_state_dict(ckpt["state_dict"], strict=True)
+        if ckpt is not None:
+            model = build_from_args(args)
+            print("Model architecture: " + args["model"])
+            model.load_state_dict(ckpt["state_dict"], strict=True)
+            print("Loaded pretrained model from " + args["pretrained_model"])
+        else:
+            # a fresh model from the args' seed, leaving the global generator as it was
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(int(args.get("seed") or 0))
+                model = build_from_args(args)
+            print("Model architecture: " + args["model"])
         self.model = model.to(self.device).eval()
-        print("Loaded pretrained model from " + args["pretrained_model"])
         self.ms = MsConfig(args)
 
     # -- datasets ------------------------------------------------------------
@@ -100,17 +119,48 @@ class NisqaTorch:
             self.ds_val = self._mk_ds(df, dcon, data_dir, self.args["csv_deg"],
                                       ref_col=self.args.get("csv_ref"))
         elif mode == "main":
-            raise NotImplementedError(
-                "mode 'main' (training) is not ported to nisqa_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 6)")
+            self._load_csv_train()
         else:
             raise NotImplementedError(f"mode not available: {mode}")
 
-    def _mk_ds(self, df, df_con, data_dir, filename_column, ref_col=None):
+    def _mk_ds(self, df, df_con, data_dir, filename_column, ref_col=None,
+               mos_column="predict_only"):
         return SpeechDataset(df, df_con=df_con, data_dir=data_dir,
-                             filename_column=filename_column, mos_column="predict_only",
+                             filename_column=filename_column, mos_column=mos_column,
                              filename_column_ref=ref_col, dim=self.args["dim"],
                              double_ended=self.args["double_ended"])
+
+    def _load_csv_train(self):
+        """The train and validation sets: the rows of ``csv_file`` (and of
+        ``csv_con``) whose ``db`` is in ``csv_db_train`` / ``csv_db_val``,
+        each with the ``index`` column of its rows in the file (pandas'
+        ``reset_index``)."""
+        args = self.args
+        data_dir = args["data_dir"]
+        dfile = Table.read_csv(os.path.join(data_dir, args["csv_file"]))
+        requested = list(args["csv_db_train"]) + list(args["csv_db_val"])
+        missing = set(requested).difference(dfile["db"].tolist())
+        if missing:
+            raise ValueError(f"Not all dbs found in csv: {missing}")
+
+        def select(table, dbs):
+            mask = np.isin(table["db"], list(dbs))
+            return Table({"index": np.nonzero(mask)[0],
+                          **{c: table[c][mask] for c in table.columns}})
+
+        dcon_train = dcon_val = None
+        if args.get("csv_con"):
+            dcon = Table.read_csv(os.path.join(data_dir, args["csv_con"]))
+            dcon_train, dcon_val = select(dcon, args["csv_db_train"]), select(dcon, args["csv_db_val"])
+        df_train, df_val = select(dfile, args["csv_db_train"]), select(dfile, args["csv_db_val"])
+        print(f"Training size: {len(df_train)}, Validation size: {len(df_val)}")
+        self.ds_train = self._mk_ds(df_train, dcon_train, data_dir, args["csv_deg"],
+                                    ref_col=args.get("csv_ref"),
+                                    mos_column=args.get("csv_mos_train"))
+        self.ds_val = self._mk_ds(df_val, dcon_val, data_dir, args["csv_deg"],
+                                  ref_col=args.get("csv_ref"), mos_column=args.get("csv_mos_val"))
+        self.runinfos["ds_train_len"] = len(self.ds_train)
+        self.runinfos["ds_val_len"] = len(self.ds_val)
 
     def _load_dir(self):
         # *.wav like the reference, plus *.flac, which the decoder reads, and
@@ -156,6 +206,29 @@ class NisqaTorch:
             df.to_csv(os.path.join(self.args["output_dir"], "NISQA_results.csv"))
         print(df.to_string())
         return df
+
+    # -- training ------------------------------------------------------------
+
+    def train(self):
+        """Mode main: trains as the args say (``train_dim`` for NISQA_DIM,
+        ``train_mos`` otherwise); the train engine stays in ``train_engine``."""
+        from .train.loop import train_dim, train_mos
+
+        if self.args["dim"]:
+            train_dim(self)
+        else:
+            train_mos(self)
+
+    def _make_runname_and_write_yaml(self):
+        """``<name>_<now>``: creates ``output_dir/<runname>/`` and writes the
+        args (without ``now``) there as ``<runname>.yaml``."""
+        runname = self.args["name"] + "_" + self.args["now"].strftime("%y%m%d_%H%M%S%f")
+        print("runname: " + runname)
+        run_dir = os.path.join(self.args["output_dir"], runname)
+        os.makedirs(run_dir, exist_ok=True)
+        yaml_lite.dump({k: v for k, v in self.args.items() if k != "now"},
+                       os.path.join(run_dir, runname + ".yaml"))
+        return runname
 
     # -- evaluation ----------------------------------------------------------
 

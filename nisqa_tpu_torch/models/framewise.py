@@ -2,10 +2,13 @@
 
 Counterpart of ``nisqa_tpu/models/framewise.py``. All B*T segments run
 densely as one NCHW batch (B*T, 1, n_mels, seg_length); padded segments are
-masked downstream, which is output-equivalent in eval. Flattened features
-use torch's channel-major order, and the module names are the reference's
-(StandardCNN's fc is ``fc_out``, Skip's is ``linear``), so released
-checkpoints load unchanged.
+masked downstream, which is output-equivalent in eval. In train mode every
+batch norm takes its statistics over the valid segments only
+(:func:`.modules.masked_batch_norm`, the validity ``w`` of each of the B*T
+rows) and the reference's dropout applies; eval runs the ``nn.BatchNorm*``
+modules as they are. Flattened features use torch's channel-major order, and
+the module names are the reference's (StandardCNN's fc is ``fc_out``, Skip's
+is ``linear``), so released checkpoints load unchanged.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from .modules import max_pool2d
+from .modules import dropout, dropout2d, length_mask, masked_batch_norm, max_pool2d
 
 
 def _kernel_hw(kernel_size):
@@ -22,11 +25,29 @@ def _kernel_hw(kernel_size):
     return int(kernel_size[0]), int(kernel_size[1])
 
 
-class AdaptCNN(nn.Module):
-    """Six conv+BN+ReLU blocks with adaptive max-pools; eval-mode forward."""
+class _Stage(nn.Module):
+    """A framewise model: ``forward(x (N, 1, H, W), w=None)``, ``w`` the (N,)
+    validity of the rows for train-mode batch statistics (None: all)."""
 
     def __init__(self, cfg: dict):
         super().__init__()
+        # the JAX package's default when the key is absent
+        self.dropout_p = float(cfg.get("cnn_dropout", 0.2) or 0.0)
+        self.generator = None
+
+    def _bn(self, bn, x, w):
+        return masked_batch_norm(x, bn, w) if self.training else bn(x)
+
+    def _drop2d(self, x):
+        return dropout2d(x, self.dropout_p, self.training, self.generator)
+
+
+class AdaptCNN(_Stage):
+    """Six conv+BN+ReLU blocks with adaptive max-pools; Dropout2d before
+    blocks 3 to 6 in train mode."""
+
+    def __init__(self, cfg: dict):
+        super().__init__(cfg)
         kh, kw = _kernel_hw(cfg["cnn_kernel_size"])
         c1, c2, c3 = int(cfg["cnn_c_out_1"]), int(cfg["cnn_c_out_2"]), int(cfg["cnn_c_out_3"])
         self.pools = [tuple(int(v) for v in cfg[f"cnn_pool_{i}"]) for i in (1, 2, 3)]
@@ -45,25 +66,26 @@ class AdaptCNN(nn.Module):
         else:
             self.fc = None
 
-    def _block(self, i, x):
-        return F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+    def _block(self, i, x, w):
+        return F.relu(self._bn(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(x), w))
 
-    def forward(self, x):
+    def forward(self, x, w=None):
         """x (N, 1, H, W) -> (N, fan_out); channel-major flatten like torch."""
-        x = F.adaptive_max_pool2d(self._block(1, x), self.pools[0])
-        x = F.adaptive_max_pool2d(self._block(2, x), self.pools[1])
-        x = self._block(4, self._block(3, x))
+        x = F.adaptive_max_pool2d(self._block(1, x, w), self.pools[0])
+        x = F.adaptive_max_pool2d(self._block(2, x, w), self.pools[1])
+        x = self._block(4, self._drop2d(self._block(3, self._drop2d(x), w)), w)
         x = F.adaptive_max_pool2d(x, self.pools[2])
-        x = self._block(6, self._block(5, x)).flatten(1)
+        x = self._block(6, self._drop2d(self._block(5, self._drop2d(x), w)), w).flatten(1)
         return self.fc(x) if self.fc is not None else x
 
 
-class StandardCNN(nn.Module):
+class StandardCNN(_Stage):
     """Six 3x3 conv+BN+ReLU blocks with 2x2 max-pools (48x15 -> 6x2), the
-    released NISQA-TTS model's framewise stage."""
+    released NISQA-TTS model's framewise stage; Dropout2d before blocks 3 to
+    6 in train mode."""
 
     def __init__(self, cfg: dict):
-        super().__init__()
+        super().__init__(cfg)
         c1, c2, c3 = int(cfg["cnn_c_out_1"]), int(cfg["cnn_c_out_2"]), int(cfg["cnn_c_out_3"])
         chans = [(1, c1), (c1, c2), (c2, c3), (c3, c3), (c3, c3), (c3, c3)]
         for i, (ci, co) in enumerate(chans, start=1):
@@ -76,23 +98,24 @@ class StandardCNN(nn.Module):
         else:
             self.fc_out = None
 
-    def _block(self, i, x):
-        return F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+    def _block(self, i, x, w):
+        return F.relu(self._bn(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(x), w))
 
-    def forward(self, x):
-        x = max_pool2d(self._block(1, x), pad_w=1)  # 48x15 -> 24x8
-        x = max_pool2d(self._block(2, x))  # -> 12x4
-        x = max_pool2d(self._block(4, self._block(3, x)))  # -> 6x2
-        x = self._block(6, self._block(5, x)).flatten(1)
+    def forward(self, x, w=None):
+        x = max_pool2d(self._block(1, x, w), pad_w=1)  # 48x15 -> 24x8
+        x = max_pool2d(self._block(2, x, w))  # -> 12x4
+        x = max_pool2d(self._block(4, self._drop2d(self._block(3, self._drop2d(x), w)), w))  # -> 6x2
+        x = self._block(6, self._drop2d(self._block(5, self._drop2d(x), w)), w).flatten(1)
         return self.fc_out(x) if self.fc_out is not None else x
 
 
-class DFF(nn.Module):
+class DFF(_Stage):
     """Feed-forward baseline: BN over the one input channel, flatten, then
-    four Linear+BN+ReLU layers of ``cnn_fc_out_h`` units."""
+    four Linear+BN+ReLU layers of ``cnn_fc_out_h`` units, dropout after the
+    first three in train mode."""
 
     def __init__(self, cfg: dict):
-        super().__init__()
+        super().__init__(cfg)
         if not cfg.get("cnn_fc_out_h"):
             raise ValueError("cnn_model='dff' requires cnn_fc_out_h to be set")
         h = self.fan_out = int(cfg["cnn_fc_out_h"])
@@ -103,18 +126,20 @@ class DFF(nn.Module):
         for i in range(2, 6):
             setattr(self, f"bn{i}", nn.BatchNorm1d(h))
 
-    def forward(self, x):
-        x = self.bn1(x).flatten(1)
+    def forward(self, x, w=None):
+        x = self._bn(self.bn1, x, w).flatten(1)
         for i in range(1, 5):
-            x = F.relu(getattr(self, f"bn{i + 1}")(getattr(self, f"lin{i}")(x)))
+            x = F.relu(self._bn(getattr(self, f"bn{i + 1}"), getattr(self, f"lin{i}")(x), w))
+            if i < 4:
+                x = dropout(x, self.dropout_p, self.training, self.generator)
         return x
 
 
-class Skip(nn.Module):
+class Skip(_Stage):
     """BN over the one input channel and flatten, plus an optional Linear."""
 
     def __init__(self, cfg: dict):
-        super().__init__()
+        super().__init__(cfg)
         self.bn = nn.BatchNorm2d(1)
         self.fan_out = int(cfg["ms_seg_length"]) * int(cfg["ms_n_mels"])
         if cfg.get("cnn_fc_out_h"):
@@ -123,8 +148,8 @@ class Skip(nn.Module):
         else:
             self.linear = None
 
-    def forward(self, x):
-        x = self.bn(x).flatten(1)
+    def forward(self, x, w=None):
+        x = self._bn(self.bn, x, w).flatten(1)
         return self.linear(x) if self.linear is not None else x
 
 
@@ -147,7 +172,16 @@ class Framewise(nn.Module):
         self.model = FRAMEWISE[kind](cfg)
         self.fan_out = self.model.fan_out
 
-    def forward(self, segs):
-        """segs (B, T, H, S) -> features (B, T, fan_out)."""
+    def forward(self, segs, n_wins=None, row_valid=None):
+        """segs (B, T, H, S) -> features (B, T, fan_out). In train mode the
+        batch statistics take the segments ``t < n_wins`` (all when None) of
+        the rows where ``row_valid`` (B,) is true (all when None)."""
         b, t, h, s = segs.shape
-        return self.model(segs.reshape(b * t, 1, h, s)).reshape(b, t, -1)
+        x = segs.reshape(b * t, 1, h, s)
+        if not self.training:
+            return self.model(x).reshape(b, t, -1)
+        valid = (length_mask(n_wins, t) if n_wins is not None
+                 else segs.new_ones((b, t), dtype=bool))
+        if row_valid is not None:
+            valid = valid & row_valid[:, None]
+        return self.model(x, valid.reshape(b * t)).reshape(b, t, -1)

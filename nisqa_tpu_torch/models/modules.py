@@ -1,12 +1,19 @@
 """Shared building blocks: length masks, masked multi-head self-attention,
-the reference's 2x2 max-pool and the masked (packed-sequence) LSTM.
+the reference's 2x2 max-pool, the masked (packed-sequence) LSTM, and the
+train-mode pieces: the masked batch norm and dropout with an explicit
+generator.
 
 Counterparts of ``nisqa_tpu/models/modules.py::length_mask``, ``mha``,
-``max_pool2d`` and ``lstm``. Attention is written out (projection, masked
-softmax, weighted sum) rather than taken from ``nn.MultiheadAttention`` /
+``max_pool2d``, ``lstm``, ``batchnorm`` (train mode), ``dropout`` and
+``dropout2d``. Attention is written out (projection, masked softmax,
+weighted sum) rather than taken from ``nn.MultiheadAttention`` /
 ``nn.TransformerEncoderLayer``: in eval with a padding mask those take a
 nested-tensor fast path that zeroes padded positions and changes the
 numerics.
+
+Dropout draws its masks from the ``generator`` attribute of the module that
+applies it (None: torch's global generator); :func:`set_dropout_generator`
+gives one generator to every such module of a model.
 """
 
 from __future__ import annotations
@@ -23,6 +30,63 @@ def length_mask(n_wins, t: int):
     return torch.arange(t, device=n_wins.device)[None, :] < n_wins[:, None]
 
 
+def masked_batch_norm(x, bn, w=None):
+    """Train-mode ``bn`` (an ``nn.BatchNorm1d`` / ``2d``) over x (N, C, ...)
+    with batch statistics over the rows whose validity ``w`` (N,) is true.
+
+    The reference runs its framewise stage on the valid segments only
+    (packed sequences); the dense batch here weights the statistics instead,
+    with weighted sums and no boolean indexing (``x[mask]`` would wait for
+    the device on every call). ``n = sum(w) * spatial``; the running
+    statistics take the batch mean and the unbiased variance ``var * n /
+    (n - 1)`` at the module's momentum, and ``num_batches_tracked`` counts
+    the call, as torch's own train-mode batch norm does. ``bn``'s weight,
+    bias and running buffers are used as they are, so no state-dict key
+    changes.
+    """
+    dims = [0] + list(range(2, x.dim()))
+    wb = (torch.ones(x.shape[0], dtype=x.dtype, device=x.device) if w is None
+          else w.to(x.dtype)).view(-1, *([1] * (x.dim() - 1)))
+    n = wb.sum() * math.prod(x.shape[2:])
+    mean = (x * wb).sum(dims) / n
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    centred = x - mean.view(shape)
+    var = (wb * centred * centred).sum(dims) / n
+    y = centred * torch.rsqrt(var + bn.eps).view(shape) * bn.weight.view(shape) + bn.bias.view(shape)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(m * mean)
+        bn.running_var.mul_(1.0 - m).add_(m * var * (n / torch.clamp(n - 1.0, min=1.0)))
+        bn.num_batches_tracked.add_(1)
+    return y
+
+
+def dropout(x, p: float, training: bool, generator=None):
+    """Elementwise dropout: zero with probability ``p``, scale the rest by
+    1 / (1 - p); the identity in eval or at p = 0."""
+    if not training or not p:
+        return x
+    keep = 1.0 - p
+    return x * (torch.empty_like(x).bernoulli_(keep, generator=generator) / keep)
+
+
+def dropout2d(x, p: float, training: bool, generator=None):
+    """Channel dropout (``nn.Dropout2d``) on NCHW: one mask per (sample,
+    channel) of shape (N, C, 1, 1)."""
+    if not training or not p:
+        return x
+    keep = 1.0 - p
+    mask = torch.empty((x.shape[0], x.shape[1], 1, 1), dtype=x.dtype, device=x.device)
+    return x * (mask.bernoulli_(keep, generator=generator) / keep)
+
+
+def set_dropout_generator(model: nn.Module, generator):
+    """Every module of ``model`` that applies dropout draws from ``generator``."""
+    for m in model.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator
+
+
 def max_pool2d(x, pad_w: int = 0):
     """torch MaxPool2d(2, stride=2, padding=(0, pad_w)) on NCHW (pads with -inf)."""
     return F.max_pool2d(x, 2, stride=2, padding=(0, pad_w))
@@ -35,26 +99,29 @@ class MultiheadSelfAttention(nn.Module):
     ``in_proj_bias``, ``out_proj``), so its checkpoints load unchanged.
     """
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout_p: float = 0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} not divisible by nhead {nhead}")
         self.nhead = nhead
+        self.dropout_p = dropout_p
+        self.generator = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x, key_valid):
-        """x (B, T, D), key_valid (B, T) bool (True = attendable) -> (B, T, D)."""
+        """x (B, T, D), key_valid (B, T) bool (True = attendable) -> (B, T, D).
+        In train mode the attention weights take dropout."""
         b, t, d = x.shape
         dh = d // self.nhead
         qkv = nn.functional.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (z.reshape(b, t, self.nhead, dh).transpose(1, 2) for z in qkv.chunk(3, dim=-1))
         scores = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
         scores = scores.masked_fill(~key_valid[:, None, None, :], -torch.inf)
-        out = torch.softmax(scores, dim=-1) @ v
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
+        att = dropout(torch.softmax(scores, dim=-1), self.dropout_p, self.training, self.generator)
+        return self.out_proj((att @ v).transpose(1, 2).reshape(b, t, d))
 
 
 def _gather_t(x, idx):
@@ -100,12 +167,17 @@ class MaskedLSTM(nn.Module):
 
     The state dict carries torch.nn.LSTM's names (``weight_ih_l{k}``,
     ``bias_hh_l{k}_reverse``, ...), so reference checkpoints load as they are.
+    In train mode every layer's output but the last takes dropout
+    (``nn.LSTM(dropout=)``'s placement).
     """
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int, bidirectional: bool):
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, bidirectional: bool,
+                 dropout_p: float = 0.0):
         super().__init__()
         dirs = 2 if bidirectional else 1
         self.bidirectional = bidirectional
+        self.dropout_p = dropout_p
+        self.generator = None
         self.layers = nn.ModuleList(
             nn.LSTM(input_size if k == 0 else hidden_size * dirs, hidden_size,
                     batch_first=True, bidirectional=bidirectional)
@@ -119,7 +191,9 @@ class MaskedLSTM(nn.Module):
         valid = (steps < n_wins[:, None])[..., None]
         shift = (t - n_wins)[:, None]
         to_right, from_right = (steps - shift).clamp(min=0), (steps + shift).clamp(max=t - 1)
-        for lstm in self.layers:
+        for k, lstm in enumerate(self.layers):
+            if k:
+                x = dropout(x, self.dropout_p, self.training, self.generator)
             if self.bidirectional:
                 h = lstm.hidden_size
                 y = lstm(torch.cat([x, _gather_t(x, to_right)]))[0]

@@ -14,7 +14,9 @@ The module tree follows the reference's state-dict names (``cnn.model.*``,
 ``time_dependency_2``, ``pool.model.*`` / ``pool_layers.{i}.model.*``), so
 released ``.tar`` checkpoints load with ``strict=True`` and no key
 converter. Every framewise, time-dependency, alignment, fusion and pooling
-option is here.
+option is here. In train mode ``row_valid`` (B,) keeps rows out of the batch
+statistics, and every dropout draws from the generator that
+:meth:`NISQA.set_dropout_generator` gives the model.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 
 from .align import Alignment, Fusion
 from .framewise import Framewise
+from .modules import set_dropout_generator
 from .pooling import Pooling
 from .td import TimeDependency
 
@@ -52,14 +55,19 @@ class NISQA(nn.Module):
 
     def _init_pool(self, cfg):
         self.pool = Pooling(self.time_dependency_2.fan_out, 1, cfg.get("pool", "att"),
-                            cfg.get("pool_att_h"))
+                            cfg.get("pool_att_h"), _pool_dropout(cfg))
 
-    def _trunk(self, x, n_wins):
-        h = self.time_dependency(self.cnn(x), n_wins)
+    def set_dropout_generator(self, generator):
+        """Every dropout of the model draws from ``generator`` (a
+        ``torch.Generator`` on the model's device; None: the global one)."""
+        set_dropout_generator(self, generator)
+
+    def _trunk(self, x, n_wins, row_valid=None):
+        h = self.time_dependency(self.cnn(x, n_wins, row_valid), n_wins)
         return self.time_dependency_2(h, n_wins)
 
-    def forward(self, x, n_wins):
-        return self.pool(self._trunk(x, n_wins), n_wins)
+    def forward(self, x, n_wins, row_valid=None):
+        return self.pool(self._trunk(x, n_wins, row_valid), n_wins)
 
 
 class NISQA_DIM(NISQA):
@@ -72,12 +80,13 @@ class NISQA_DIM(NISQA):
         # the reference sizes the heads from the td (not td_2) fan-out
         # (nisqa_tpu/models/nisqa.py:84-93); identical when td_2 is skip
         self.pool_layers = nn.ModuleList(
-            Pooling(self.time_dependency.fan_out, 1, cfg.get("pool", "att"), cfg.get("pool_att_h"))
+            Pooling(self.time_dependency.fan_out, 1, cfg.get("pool", "att"), cfg.get("pool_att_h"),
+                    _pool_dropout(cfg))
             for _ in DIM_TARGETS
         )
 
-    def forward(self, x, n_wins):
-        h = self._trunk(x, n_wins)
+    def forward(self, x, n_wins, row_valid=None):
+        h = self._trunk(x, n_wins, row_valid)
         return torch.cat([pool(h, n_wins) for pool in self.pool_layers], dim=1)
 
 
@@ -95,27 +104,31 @@ class NISQA_DE(NISQA):
         self.fuse = Fusion(cfg.get("de_fuse"), d, cfg.get("de_fuse_dim"))
         return self.fuse.fan_out
 
-    def forward(self, x, n_wins):
-        return self.forward_ends(x[:, :, 0], n_wins[:, 0], x[:, :, 1], n_wins[:, 1])
+    def forward(self, x, n_wins, row_valid=None):
+        return self.forward_ends(x[:, :, 0], n_wins[:, 0], x[:, :, 1], n_wins[:, 1], row_valid)
 
-    def trunk_ends(self, deg, n_deg, ref, n_ref):
+    def trunk_ends(self, deg, n_deg, ref, n_ref, row_valid=None):
         """The shared framewise + td features of both ends, (B, T, D) each.
         In eval every stage acts row by row, so the trunk runs once over
         both ends' 2B rows. In train mode it runs twice, degraded end first,
         so that BN's running statistics take the reference's serial
         update."""
         if self.training:
-            return (self.time_dependency(self.cnn(deg), n_deg),
-                    self.time_dependency(self.cnn(ref), n_ref))
+            return (self.time_dependency(self.cnn(deg, n_deg, row_valid), n_deg),
+                    self.time_dependency(self.cnn(ref, n_ref, row_valid), n_ref))
         n = torch.cat([n_deg, n_ref])
         return self.time_dependency(self.cnn(torch.cat([deg, ref])), n).split(deg.shape[0])
 
-    def forward_ends(self, deg, n_deg, ref, n_ref):
+    def forward_ends(self, deg, n_deg, ref, n_ref, row_valid=None):
         """(deg (B, T, M, S), n_deg (B,), ref (B, T, M, S), n_ref (B,)) ->
         (B, 1)."""
-        fd, fr = self.trunk_ends(deg, n_deg, ref, n_ref)
+        fd, fr = self.trunk_ends(deg, n_deg, ref, n_ref, row_valid)
         h = self.time_dependency_2(self.fuse(fd, self.align(fd, fr, n_ref)), n_deg)
         return self.pool(h, n_deg)
+
+
+def _pool_dropout(cfg) -> float:
+    return float(cfg.get("pool_att_dropout") or 0.0)
 
 
 def build_model(model_name: str, model_args: dict) -> nn.Module:

@@ -4,6 +4,7 @@ last step and bidirectional last step.
 Counterpart of ``nisqa_tpu/models/pooling.py``: masked reductions over the
 valid frames of (B, T, D), then a linear layer to the output. The frame
 picks gather on the device with the lengths there (no host sync).
+PoolAttFF's attention hidden layer takes dropout in train mode.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .modules import length_mask
+from .modules import dropout, length_mask
 
 
 def _attend(score, x, n_wins):
@@ -32,14 +33,17 @@ class PoolAtt(nn.Module):
 
 
 class PoolAttFF(nn.Module):
-    def __init__(self, d_input: int, output_size: int, att_h: int):
+    def __init__(self, d_input: int, output_size: int, att_h: int, dropout_p: float = 0.0):
         super().__init__()
         self.linear1 = nn.Linear(d_input, att_h)
         self.linear2 = nn.Linear(att_h, 1)
         self.linear3 = nn.Linear(d_input, output_size)
+        self.dropout_p = dropout_p
+        self.generator = None
 
     def forward(self, x, n_wins):
-        score = self.linear2(F.relu(self.linear1(x)))[..., 0]
+        h = dropout(F.relu(self.linear1(x)), self.dropout_p, self.training, self.generator)
+        score = self.linear2(h)[..., 0]
         return self.linear3(_attend(score, x, n_wins))
 
 
@@ -78,11 +82,12 @@ class Pooling(nn.Module):
     """Dispatcher holding ``.model``: for ``att``, PoolAttFF when ``att_h``
     is set, else PoolAtt; :class:`PoolReduce` for the other kinds."""
 
-    def __init__(self, d_input: int, output_size: int, pool: str, att_h=None):
+    def __init__(self, d_input: int, output_size: int, pool: str, att_h=None,
+                 dropout_p: float = 0.0):
         super().__init__()
         if pool == "att":
             self.model = (PoolAtt(d_input, output_size) if att_h is None
-                          else PoolAttFF(d_input, output_size, int(att_h)))
+                          else PoolAttFF(d_input, output_size, int(att_h), dropout_p))
         elif pool in ("avg", "max", "last_step", "last_step_bi"):
             self.model = PoolReduce(d_input, output_size, pool)
         else:

@@ -4,7 +4,10 @@ Counterpart of ``nisqa_tpu/models/td.py`` (``self_attention_apply``,
 ``td_apply``): static (B, T, D) layout with a key-validity mask, residual
 then LayerNorm as in the reference, the optional sinusoidal positional
 encoding added after the input LayerNorm, and the masked LSTM of
-:class:`.modules.MaskedLSTM`.
+:class:`.modules.MaskedLSTM`. In train mode the self-attention takes the
+reference encoder's dropout (after the positional encoding, on the
+attention weights and output, on the feed-forward activation and output)
+and the LSTM dropout between its layers.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .modules import MaskedLSTM, MultiheadSelfAttention, length_mask
+from .modules import MaskedLSTM, MultiheadSelfAttention, dropout, length_mask
 
 
 def positional_encoding_table(d_model: int, max_len: int = 3000):
@@ -44,36 +47,43 @@ class PositionalEncoding(nn.Module):
 
 
 class SelfAttentionLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, sa_h: int):
+    def __init__(self, d_model: int, nhead: int, sa_h: int, dropout_p: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadSelfAttention(d_model, nhead)
+        self.self_attn = MultiheadSelfAttention(d_model, nhead, dropout_p)
         self.linear1 = nn.Linear(d_model, sa_h)
         self.linear2 = nn.Linear(sa_h, d_model)
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
+        self.dropout_p = dropout_p
+        self.generator = None
+
+    def _drop(self, x):
+        return dropout(x, self.dropout_p, self.training, self.generator)
 
     def forward(self, h, key_valid):
-        h = self.norm1(h + self.self_attn(h, key_valid))
-        return self.norm2(h + self.linear2(F.relu(self.linear1(h))))
+        h = self.norm1(h + self._drop(self.self_attn(h, key_valid)))
+        return self.norm2(h + self._drop(self.linear2(self._drop(F.relu(self.linear1(h))))))
 
 
 class SelfAttention(nn.Module):
     """Input projection + LayerNorm, then ``num_layers`` encoder layers."""
 
     def __init__(self, input_size: int, d_model: int, nhead: int, num_layers: int, sa_h: int,
-                 pos_enc: bool = False):
+                 pos_enc: bool = False, dropout_p: float = 0.0):
         super().__init__()
         self.linear = nn.Linear(input_size, d_model)
         self.norm1 = nn.LayerNorm(d_model)
         self.layers = nn.ModuleList(
-            SelfAttentionLayer(d_model, nhead, sa_h) for _ in range(num_layers))
+            SelfAttentionLayer(d_model, nhead, sa_h, dropout_p) for _ in range(num_layers))
         self.pos_encoder = PositionalEncoding(d_model) if pos_enc else None
+        self.dropout_p = dropout_p
+        self.generator = None
 
     def forward(self, x, n_wins):
         key_valid = length_mask(n_wins, x.shape[1])
         h = self.norm1(self.linear(x))
         if self.pos_encoder is not None:
-            h = self.pos_encoder(h)
+            h = dropout(self.pos_encoder(h), self.dropout_p, self.training, self.generator)
         for layer in self.layers:
             h = layer(h, key_valid)
         return h
@@ -82,9 +92,10 @@ class SelfAttention(nn.Module):
 class LSTM(nn.Module):
     """Holds ``.lstm`` (state-dict prefix ``time_dependency.model.lstm.*``)."""
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int, bidirectional: bool):
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, bidirectional: bool,
+                 dropout_p: float = 0.0):
         super().__init__()
-        self.lstm = MaskedLSTM(input_size, hidden_size, num_layers, bidirectional)
+        self.lstm = MaskedLSTM(input_size, hidden_size, num_layers, bidirectional, dropout_p)
 
     def forward(self, x, n_wins):
         return self.lstm(x, n_wins)
@@ -102,12 +113,14 @@ class TimeDependency(nn.Module):
             self.model = SelfAttention(
                 input_size, d_model, int(cfg[f"{prefix}_sa_nhead"]),
                 int(cfg[f"{prefix}_sa_num_layers"]), int(cfg[f"{prefix}_sa_h"]),
-                bool(cfg.get(f"{prefix}_sa_pos_enc")))
+                bool(cfg.get(f"{prefix}_sa_pos_enc")),
+                float(cfg.get(f"{prefix}_sa_dropout") or 0.0))
             self.fan_out = d_model
         elif kind == "lstm":
             h = int(cfg[f"{prefix}_lstm_h"])
             bi = bool(cfg[f"{prefix}_lstm_bidirectional"])
-            self.model = LSTM(input_size, h, int(cfg[f"{prefix}_lstm_num_layers"]), bi)
+            self.model = LSTM(input_size, h, int(cfg[f"{prefix}_lstm_num_layers"]), bi,
+                              float(cfg.get(f"{prefix}_lstm_dropout") or 0.0))
             self.fan_out = (2 if bi else 1) * h
         elif kind == "skip":
             self.model = None

@@ -150,8 +150,8 @@ def test_error_paths(corpus, tmp_path):
         port_main(["--mode", "predict_csv", "--pretrained_model", ckpts["NISQA"],
                    "--csv_file", "missing.csv", "--csv_deg", "deg", "--data_dir", str(empty),
                    "--tr_device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        NisqaTorch({"mode": "main", "pretrained_model": ckpts["NISQA"], "tr_device": "cpu"})
+    with pytest.raises(NotImplementedError, match="mode not available: bogus"):
+        NisqaTorch({"mode": "bogus", "pretrained_model": ckpts["NISQA"], "tr_device": "cpu"})
 
 
 def test_no_silent_cpu_fallback(corpus, monkeypatch):

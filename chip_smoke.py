@@ -68,15 +68,28 @@ never prints its last line):
      ``main``) on the shipped ``train_nisqa_cnn_sa_ap.yaml`` at full width:
      NISQA from scratch for 2 epochs at bs 32 over phase 5's corpus in a
      labelled CSV (52 files db TRAIN, the 16 kHz ones among them, 16 db VAL;
-     MOS from each file's pitch): finite losses, one kernel launch per train
-     step and per cold validation batch, both epochs' ``.tar`` files load
-     with ``strict=True``, the final one served through ``run_predict``
-     gives the loop's last validation pass; per epoch train audio-s/s, step
-     and validation times, peak memory, and the idle share of a warm epoch;
-     one train step's loss and gradients with the kernel and the twin
-     front-end at "highest"; then one epoch of the multidimensional finetune
-     from phase 5's ``.tar`` and one of ``train_nisqa_double_ended.yaml`` on
-     32 of phase 10's pairs (two launches per step);
+     MOS from each file's pitch) from the host fill: finite losses, one
+     kernel launch per train step and per cold validation batch, both
+     epochs' ``.tar`` files load with ``strict=True``, the final one served
+     through ``run_predict`` gives the loop's last validation pass; per
+     epoch train audio-s/s, step and validation times, peak memory; one
+     train step's loss and gradients with the kernel and the twin front-end
+     at "highest"; five more warm epochs (median train audio-s/s and step)
+     and a profiled one (idle share). Then the device-resident
+     corpus (``tr_ds_to_memory``): (a) the same run resident, whose only
+     launches are the corpus build's 64-row chunks and the cold validation
+     batch, with the resident MB per sample rate, the build time, the same
+     epoch numbers and warm-epoch idle share beside the host fill's; (b) one
+     unshuffled epoch at zero dropout from the same weights, resident and
+     host-filled, within 1e-4 (loss, relative) and 1e-3 (predictions); the
+     kernel alone at the build's shape (a 64-row chunk at 48 kHz, exact
+     mode) against its twin; (c) partial residency: phase 10's 96 degraded
+     48 kHz files under a budget of 80 rows (a 64-row head resident, the
+     advisory, 3 steps an epoch, launches for the build and the tail steps
+     only); then one epoch of the multidimensional finetune from phase 5's
+     ``.tar``, and one of ``train_nisqa_double_ended.yaml`` on 32 of phase
+     10's pairs from the host fill (two launches per step) and (d) resident
+     (two per build chunk);
   12. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
      of every port module loads no jax, pandas, yaml, tqdm, matplotlib or
      ``nisqa_tpu``.
@@ -88,7 +101,9 @@ The last two lines are a JSON record of the kernel and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
+import io
 import json
 import math
 import os
@@ -162,18 +177,78 @@ def hgmma_count(lib_path: str) -> int:
     return sum("HGMMA" in line for line in r.stdout.splitlines())
 
 
+def kernel_case(geometry: str, g_ms, sr: int, n: int, modes, reps: int, rng, card: str):
+    """``fused_dft_mel`` against ``dft_mel_reference`` on the card at ``n``
+    frame rows of ``sr`` under ``g_ms``'s front-end, in each of ``modes``
+    ("exact", "fast"): the error, a bitwise repeat, CUDA-event times of
+    both (median of ``reps``, kernel and twin in turns) and the bound.
+    Returns the rows of results."""
+    from nisqa_tpu_torch.data.pipeline import front_end_consts, matmul_precision
+    from nisqa_tpu_torch.ops.dft_mel import (dft_mel_reference, fused_dft_mel, plan_grid,
+                                             prepare_consts)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(g_ms, sr, "i16").items()}
+    span, k = c["w_re"].shape
+    m = c["fb_t"].shape[1]
+    frames = np.clip(np.round(rng.standard_normal((n, span)) * 3000), -32768, 32767)
+    frames = torch.from_numpy(frames.astype(np.float32)).cuda()
+    flop = 4.0 * n * span * k  # the DFT's re and im products, as counted for both
+    n_tiles = len(prepare_consts(c["w_re"], c["w_im"], c["fb_t"], True)["tiles"])
+    iters = 1 if n >= 10_000 else 20
+    results = []
+    for mode in modes:
+        bf16, bound = mode == "fast", FAST_BOUND if mode == "fast" else EXACT_BOUND
+        # fast mode takes bf16 frames, as mel_fn hands them over
+        args = (frames.to(torch.bfloat16) if bf16 else frames, c["w_re"], c["w_im"], c["fb_t"])
+        with matmul_precision("highest"):  # the twin in float32, TF32 off
+            out = fused_dft_mel(*args, bf16=bf16)
+            again = fused_dft_mel(*args, bf16=bf16)
+            ref = dft_mel_reference(*args, bf16=bf16)
+            torch.cuda.synchronize()
+            abs_err = (out - ref).abs().max().item()
+            rel_err = abs_err / ref.abs().max().item()
+            repeat_equal = bool(torch.equal(out, again))
+            del out, again, ref
+            k_ms, t_ms = [], []
+            for _ in range(reps):  # alternate kernel and twin
+                k_ms.append(event_ms(lambda: fused_dft_mel(*args, bf16=bf16), iters))
+                t_ms.append(event_ms(lambda: dft_mel_reference(*args, bf16=bf16), iters))
+        kernel_ms, twin_ms = float(np.median(k_ms)), float(np.median(t_ms))
+        # least time for the same work: the products on the tensor cores
+        # (3 TF32 products per exact one), or each input read and the
+        # output written once at the HBM rate, whichever is longer
+        ops_s = flop / BF16_PEAK if bf16 else 3 * flop / TF32_PEAK
+        io_bytes = n * span * (2 if bf16 else 4) + (2 * span * k + k * m + n * m) * 4
+        bound_ms = 1e3 * max(ops_s, io_bytes / HBM_RATE)
+        row_tiles, splits, _ = plan_grid(n, n_tiles, sms)
+        row = {"geometry": geometry, "sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
+               "grid": [row_tiles, splits], "max_abs_err": abs_err, "rel_err": rel_err,
+               "bound": bound, "repeat_bitwise_equal": repeat_equal,
+               "kernel_ms": kernel_ms, "twin_ms": twin_ms,
+               "kernel_tflops": flop / kernel_ms / 1e9, "twin_tflops": flop / twin_ms / 1e9,
+               "bound_ms": bound_ms, "bound_by": "operations" if ops_s * HBM_RATE >= io_bytes
+               else "bytes", "share_of_bound": bound_ms / kernel_ms}
+        print("kernel_vs_twin " + json.dumps(row) + f" card: {card}", flush=True)
+        check(math.isfinite(rel_err) and rel_err <= bound,
+              f"fused_dft_mel disagrees with its twin: {row}")
+        check(repeat_equal, f"two launches on the same input differ: {row}")
+        results.append(row)
+        del args
+    del frames, c
+    torch.cuda.empty_cache()
+    return results
+
+
 def kernel_vs_twin(seed: int, reps: int, card: str):
     """Phase 3. Returns (rows of results, the main shape's row by mode, the
     TTS shape's row by mode)."""
-    from nisqa_tpu_torch.data.pipeline import MsConfig, front_end_consts, matmul_precision
-    from nisqa_tpu_torch.ops.dft_mel import (dft_mel_reference, fused_dft_mel, plan_grid,
-                                             prepare_consts)
+    from nisqa_tpu_torch.data.pipeline import MsConfig
 
     ms, tts = MsConfig(YAML_GEOMETRY), MsConfig(TTS_GEOMETRY)
     n_main = BATCH * ms.frames_for_bucket(ms.max_segments)  # 32 x 5,211 = 166,752
     n_small = BATCH * ms.frames_for_bucket(ms.buckets()[0])  # 32 x 663 = 21,216
     n_tts = TTS_BATCH * tts.frames_for_bucket(tts.max_segments)  # 8 x 6,014 = 48,112
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(seed)
     results = []
     # the main path's shapes, then 44.1 kHz: a 882-sample span whose rows the
@@ -183,53 +258,7 @@ def kernel_vs_twin(seed: int, reps: int, card: str):
              ("yaml", ms, 16000, n_main), ("yaml", ms, 44100, 4000),
              ("tts", tts, 48000, n_tts), ("tts", tts, 48000, 1001)]
     for geometry, g_ms, sr, n in cases:
-        c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(g_ms, sr, "i16").items()}
-        span, k = c["w_re"].shape
-        m = c["fb_t"].shape[1]
-        frames = np.clip(np.round(rng.standard_normal((n, span)) * 3000), -32768, 32767)
-        frames = torch.from_numpy(frames.astype(np.float32)).cuda()
-        flop = 4.0 * n * span * k  # the DFT's re and im products, as counted for both
-        n_tiles = len(prepare_consts(c["w_re"], c["w_im"], c["fb_t"], True)["tiles"])
-        iters = 1 if n >= 10_000 else 20
-        for mode, bf16, bound in (("exact", False, EXACT_BOUND), ("fast", True, FAST_BOUND)):
-            # fast mode takes bf16 frames, as mel_fn hands them over
-            args = (frames.to(torch.bfloat16) if bf16 else frames, c["w_re"], c["w_im"], c["fb_t"])
-            with matmul_precision("highest"):  # the twin in float32, TF32 off
-                out = fused_dft_mel(*args, bf16=bf16)
-                again = fused_dft_mel(*args, bf16=bf16)
-                ref = dft_mel_reference(*args, bf16=bf16)
-                torch.cuda.synchronize()
-                abs_err = (out - ref).abs().max().item()
-                rel_err = abs_err / ref.abs().max().item()
-                repeat_equal = bool(torch.equal(out, again))
-                del out, again, ref
-                k_ms, t_ms = [], []
-                for _ in range(reps):  # alternate kernel and twin
-                    k_ms.append(event_ms(lambda: fused_dft_mel(*args, bf16=bf16), iters))
-                    t_ms.append(event_ms(lambda: dft_mel_reference(*args, bf16=bf16), iters))
-            kernel_ms, twin_ms = float(np.median(k_ms)), float(np.median(t_ms))
-            # least time for the same work: the products on the tensor cores
-            # (3 TF32 products per exact one), or each input read and the
-            # output written once at the HBM rate, whichever is longer
-            ops_s = flop / BF16_PEAK if bf16 else 3 * flop / TF32_PEAK
-            io_bytes = n * span * (2 if bf16 else 4) + (2 * span * k + k * m + n * m) * 4
-            bound_ms = 1e3 * max(ops_s, io_bytes / HBM_RATE)
-            row_tiles, splits, _ = plan_grid(n, n_tiles, sms)
-            row = {"geometry": geometry, "sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
-                   "grid": [row_tiles, splits], "max_abs_err": abs_err, "rel_err": rel_err,
-                   "bound": bound, "repeat_bitwise_equal": repeat_equal,
-                   "kernel_ms": kernel_ms, "twin_ms": twin_ms,
-                   "kernel_tflops": flop / kernel_ms / 1e9, "twin_tflops": flop / twin_ms / 1e9,
-                   "bound_ms": bound_ms, "bound_by": "operations" if ops_s * HBM_RATE >= io_bytes
-                   else "bytes", "share_of_bound": bound_ms / kernel_ms}
-            print("kernel_vs_twin " + json.dumps(row) + f" card: {card}", flush=True)
-            check(math.isfinite(rel_err) and rel_err <= bound,
-                  f"fused_dft_mel disagrees with its twin: {row}")
-            check(repeat_equal, f"two launches on the same input differ: {row}")
-            results.append(row)
-            del args
-        del frames, c
-        torch.cuda.empty_cache()
+        results += kernel_case(geometry, g_ms, sr, n, ("exact", "fast"), reps, rng, card)
     main = {r["mode"]: r for r in results if r["sr"] == 48000 and r["N"] == n_main}
     tts_main = {r["mode"]: r for r in results if r["N"] == n_tts}
     return results, main, tts_main
@@ -1048,7 +1077,8 @@ def train_step_kernel_vs_twin(runner, card: str):
         model.train()
         eng.dft_mel = dft_mel
         eng.generator.manual_seed(0)  # the same dropout masks
-        segs, y, b = eng._batch(idx, paths, None, entries, None, ds.targets(), bias, BATCH, kind)
+        segs = eng._batch(idx, paths, None, entries, None, BATCH, kind)
+        y, b = eng._targets(idx, ds.targets(), bias)
         with matmul_precision("highest"):
             loss, _ = eng._loss(segs, y, b)
             model.zero_grad(set_to_none=True)
@@ -1073,11 +1103,112 @@ def train_step_kernel_vs_twin(runner, card: str):
     check(worst[0] <= TRAIN_GRAD_BOUND, f"train-step gradient {worst[1]} off by {worst[0]}")
 
 
-def training(tmp: str, dim_tar: str, paths, card: str):
+def epoch_report(runner, rows, label: str, card: str):
+    """Prints each epoch of a training run (train audio-s/s over
+    ``run_epoch``'s wall, mean step, validation, loss; the corpus build) and
+    returns the train audio-s of the run's train set."""
+    from nisqa_tpu_torch.train.loop import _n_of
+
+    eng = runner.train_engine
+    train_audio_s = sum(_n_of(e) / e[2] for e in eng._entries(runner.ds_train.paths()))
+    for h, row in zip(eng.history, rows):
+        build = "" if h["build_s"] is None else f"; corpus build {h['build_s']:.4f} s of it"
+        print(f"{label} epoch {h['epoch'] + 1}: {h['files']} files, {train_audio_s:.1f} audio-s in "
+              f"{h['wall_s']:.4f} s = {train_audio_s / h['wall_s']:.1f} train audio-s/s{build}; "
+              f"{h['steps']} steps, mean step {1e3 * h['wall_s'] / h['steps']:.2f} ms; validation "
+              f"pass {h['val_s']:.4f} s ({len(runner.ds_val)} files); epoch wall "
+              f"{row['ep_runtime']} s; loss {row['loss']} on {card}", flush=True)
+    return train_audio_s
+
+
+def warm_epochs(runner, train_audio_s: float, label: str, card: str):
+    """``WARM_REPS`` more (warm) epochs of the run's engine, timed on the
+    host clock (each ends in the epoch's readback), then one profiled for
+    the device's idle share. Returns {audio_s_per_s, step_ms (medians),
+    idle (None when the profiler records no device activity)}."""
+    from nisqa_tpu_torch.train.loop import _bias_losses
+
+    eng = runner.train_engine
+    bias = _bias_losses(runner, 5 if runner.args["dim"] else 1)
+    lr = runner.args["tr_lr"]
+    secs = []
+    for _ in range(WARM_REPS):
+        t0 = time.perf_counter()
+        eng.run_epoch(runner.ds_train, bias, lr, len(eng.history), BATCH)
+        secs.append(time.perf_counter() - t0)
+    busy, wall, idle, _ = idle_share(
+        lambda: eng.run_epoch(runner.ds_train, bias, lr, len(eng.history), BATCH))
+    dt = float(np.median(secs))
+    out = {"audio_s_per_s": train_audio_s / dt, "step_ms": 1e3 * dt / eng.history[-1]["steps"],
+           "idle": idle}
+    idle_txt = ("not measured (no device activity in the trace)" if idle is None else
+                f"{idle:.4f} (device busy {busy:.4f} s of {wall:.4f} s, torch.profiler)")
+    print(f"{label} {WARM_REPS} warm epochs: {out['audio_s_per_s']:.1f} train audio-s/s, mean step "
+          f"{out['step_ms']:.2f} ms (median {dt:.4f} s of {[round(t, 4) for t in secs]}); one more, "
+          f"profiled: idle share {idle_txt} on {card}", flush=True)
+    return out
+
+
+def corpus_report(eng, label: str, card: str):
+    """Prints the resident groups of a train engine's device corpus; returns
+    the number of 64-row chunks its build ran per end."""
+    from nisqa_tpu_torch.train.loop import CHUNK
+
+    chunks = 0
+    for sr, c in sorted(eng._corpus.items()):
+        mb = sum(c[k].numel() * c[k].element_size() for k in ("mel", "mel_ref") if k in c) / 2 ** 20
+        chunks += c["mel"].shape[0] // CHUNK
+        print(f"{label} device corpus sr {sr}: {len(c['local'])} files resident in "
+              f"{c['mel'].shape[0]} rows x {tuple(c['mel'].shape[1:])} at bucket {c['bucket']} "
+              f"({c['kind']} transport{', both ends' if 'mel_ref' in c else ''}), {mb:.3f} MB "
+              f"on {card}", flush=True)
+    return chunks
+
+
+def train_runner(cfg_path: str, **over):
+    """A ``NisqaTorch`` in mode main on ``cfg_path``'s args and ``over``, as
+    ``run_train`` builds it (its fresh model drawn from the args' seed)."""
+    from nisqa_tpu_torch import run_train
+    from nisqa_tpu_torch.model import NisqaTorch
+
+    return NisqaTorch({**run_train.parse_args(["--yaml", cfg_path]), **over})
+
+
+def resident_vs_host_fill(cfg_path: str, card: str):
+    """One unshuffled epoch from the same initial weights at zero dropout
+    and "highest", from the device corpus and from the host fill: the loss
+    within TRAIN_LOSS_BOUND relative, the train-mode predictions within
+    PASS_BOUND."""
+    from nisqa_tpu_torch.train.loop import TrainEngine, _bias_losses
+
+    no_drop = {"cnn_dropout": 0.0, "td_sa_dropout": 0.0, "pool_att_dropout": 0.0,
+               "td_2_sa_dropout": 0.0, "tr_verbose": 0}
+    out = {}
+    for mem in (True, False):
+        runner = train_runner(cfg_path, tr_ds_to_memory=mem, **no_drop)
+        eng = TrainEngine(runner)
+        out[mem] = eng.run_epoch(runner.ds_train, _bias_losses(runner, 1), runner.args["tr_lr"], 0,
+                                 BATCH, shuffle=False)
+        check(bool(eng._corpus) == mem, f"tr_ds_to_memory={mem}: corpus {bool(eng._corpus)}")
+        del runner, eng
+    (loss_r, y_r), (loss_h, y_h) = out[True], out[False]
+    rel, diff = abs(loss_r - loss_h) / abs(loss_h), float(np.abs(y_r - y_h).max())
+    print(f"train NISQA resident vs host fill, one unshuffled epoch at zero dropout, 'highest': "
+          f"loss {loss_r} vs {loss_h}, rel {rel:.3e} (bound {TRAIN_LOSS_BOUND}); train-mode "
+          f"predictions max_abs_diff {diff:.3e} (bound {PASS_BOUND}) on {card}", flush=True)
+    check(rel <= TRAIN_LOSS_BOUND, f"resident vs host fill: loss rel {rel}")
+    check(bool(np.isfinite(y_r).all()) and diff <= PASS_BOUND,
+          f"resident vs host fill: predictions off by {diff}")
+    torch.cuda.empty_cache()
+
+
+def training(tmp: str, dim_tar: str, paths, reps: int, card: str):
     """Phase 11: training through ``python -m nisqa_tpu_torch.run_train``'s
-    ``main``. Returns {run: kernel launches}."""
+    ``main``, from the host fill and from the device-resident corpus.
+    Returns ({run: kernel launches}, the corpus build's kernel rows)."""
     from nisqa_tpu_torch import run_predict
-    from nisqa_tpu_torch.train.loop import _bias_losses, _n_of
+    from nisqa_tpu_torch.data.pipeline import MsConfig
+    from nisqa_tpu_torch.train.loop import CHUNK
 
     corpus = os.path.dirname(paths[0])
     launches = {}
@@ -1093,15 +1224,16 @@ def training(tmp: str, dim_tar: str, paths, card: str):
         for n, db, m in zip(names, dbs, mos):
             w.writerow([n, db, m, *np.round(np.clip(m + rng.normal(0, 0.3, 4), 1, 5), 2)])
 
-    # the main path: NISQA from scratch, full width, 2 epochs at bs 32
+    # the main path: NISQA from scratch, full width, 2 epochs at bs 32, host fill
     out = os.path.join(tmp, "train_nisqa")
     os.makedirs(out)
     cfg = train_config("train_nisqa_cnn_sa_ap.yaml", corpus, out, "train.csv",
                        csv_deg="filepath_deg", tr_epochs=2)
+    label = "train NISQA host fill"
     runner, launches["train_nisqa_2_epochs"], rows, run_dir, _ = run_training(
-        cfg, "train NISQA (train_nisqa_cnn_sa_ap.yaml, full width, bs 32)", card)
+        cfg, f"{label} (train_nisqa_cnn_sa_ap.yaml, full width, bs 32)", card)
     eng = runner.train_engine
-    train_audio_s = sum(_n_of(e) / e[2] for e in eng._entries(runner.ds_train.paths()))
+    host_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     val_paths = runner.ds_val.paths()
     n_val = len(runner.engine.plan(val_paths))
     check(runner.engine.stats["last"]["mode"] == "cached",
@@ -1109,12 +1241,7 @@ def training(tmp: str, dim_tar: str, paths, card: str):
     check(launches["train_nisqa_2_epochs"] == eng.steps + n_val,
           f"{launches['train_nisqa_2_epochs']} launches for {eng.steps} train steps and "
           f"{n_val} cold validation batches")
-    for h, row in zip(eng.history, rows):
-        print(f"train NISQA epoch {h['epoch'] + 1}: {h['files']} files, {train_audio_s:.1f} "
-              f"audio-s in {h['wall_s']:.4f} s = {train_audio_s / h['wall_s']:.1f} train audio-s/s; "
-              f"{h['steps']} steps, mean step {1e3 * h['wall_s'] / h['steps']:.2f} ms; validation "
-              f"pass {h['val_s']:.4f} s ({len(val_paths)} files); epoch wall {row['ep_runtime']} s; "
-              f"loss {row['loss']} on {card}", flush=True)
+    train_audio_s = epoch_report(runner, rows, label, card)
     final_tar = check_tars(run_dir, 2, "train NISQA")
 
     # the final .tar served through run_predict gives the loop's last validation pass
@@ -1134,15 +1261,93 @@ def training(tmp: str, dim_tar: str, paths, card: str):
     check(diff <= SERVE_BOUND, f"the served final .tar differs from the loop's validation by {diff}")
 
     train_step_kernel_vs_twin(runner, card)
-
-    # the device's idle share over one warm epoch (a third epoch of the same run)
-    bias = _bias_losses(runner, 1)
-    busy, wall, idle, _ = idle_share(
-        lambda: eng.run_epoch(runner.ds_train, bias, runner.args["tr_lr"], 2, BATCH))
-    idle_txt = ("not measured (no device activity in the trace)" if idle is None else
-                f"{idle:.4f} (device busy {busy:.4f} s of {wall:.4f} s, torch.profiler)")
-    print(f"train NISQA warm epoch, profiled: idle share {idle_txt} on {card}", flush=True)
+    host = warm_epochs(runner, train_audio_s, label, card)
     del runner, eng, served
+    torch.cuda.empty_cache()
+
+    # (a) the same run from the device-resident corpus: the build's chunks
+    # are the only train launches
+    out = os.path.join(tmp, "train_nisqa_resident")
+    os.makedirs(out)
+    cfg_res = train_config("train_nisqa_cnn_sa_ap.yaml", corpus, out, "train.csv",
+                           csv_deg="filepath_deg", tr_epochs=2, tr_ds_to_memory=True)
+    label = "train NISQA resident"
+    runner, launches["train_nisqa_resident_2_epochs"], rows, run_dir, _ = run_training(
+        cfg_res, f"{label} (tr_ds_to_memory, full width, bs 32)", card)
+    eng = runner.train_engine
+    res_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chunks = corpus_report(eng, label, card)
+    check(sum(len(c["local"]) for c in eng._corpus.values()) == len(runner.ds_train),
+          "the default budget left files on the host fill")
+    check(launches["train_nisqa_resident_2_epochs"] == chunks + n_val,
+          f"resident: {launches['train_nisqa_resident_2_epochs']} launches for {chunks} build "
+          f"chunks and {n_val} cold validation batches")
+    epoch_report(runner, rows, label, card)
+    check_tars(run_dir, 2, "train NISQA resident")
+    res = warm_epochs(runner, train_audio_s, label, card)
+    build_frames = eng._corpus[48000]["mel"].shape[1]
+    print(f"train NISQA warm epochs, host fill vs resident: {host['audio_s_per_s']:.1f} vs "
+          f"{res['audio_s_per_s']:.1f} train audio-s/s, mean step {host['step_ms']:.2f} vs "
+          f"{res['step_ms']:.2f} ms, idle share {host['idle']} vs {res['idle']}; peak device "
+          f"memory {host_peak_gb:.3f} vs {res_peak_gb:.3f} GB on {card}", flush=True)
+    del runner, eng
+    torch.cuda.empty_cache()
+
+    # (b) resident vs host fill from the same weights
+    resident_vs_host_fill(cfg_res, card)
+
+    # the kernel alone at the corpus build's shape: one 64-row chunk of the
+    # 48 kHz group, exact mode
+    ms = MsConfig(YAML_GEOMETRY)
+    build_rows = kernel_case("corpus build", ms, 48000, CHUNK * build_frames, ("exact",), reps,
+                             np.random.default_rng(2), card)
+
+    # (c) partial residency: phase 10's 96 degraded 48 kHz files as a
+    # single-ended corpus (db TRAIN), its 4 degraded 16 kHz files db VAL; a
+    # budget of about 80 rows keeps a 64-row head resident
+    de_corpus = os.path.join(tmp, "de_wavs")
+    deg = sorted(f for f in os.listdir(de_corpus) if f.endswith("_deg.wav"))
+    deg_paths = [os.path.join(de_corpus, d) for d in deg]
+    with open(os.path.join(de_corpus, "partial.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["filepath_deg", "db", "mos"])
+        for d, m in zip(deg, learnable_mos(deg_paths)):
+            w.writerow([d, "TRAIN" if "_48k_" in d else "VAL", m])
+    longest = 0
+    for p in deg_paths:
+        if "_48k_" in p:
+            with wave.open(p) as w:
+                longest = max(longest, w.getnframes())
+    bucket = ms.bucket_for(ms.n_wins(ms.n_frames(longest, 48000)))
+    row_mb = ms.frames_for_bucket(bucket) * ms.n_mels * 4 / 2 ** 20
+    out = os.path.join(tmp, "train_partial")
+    os.makedirs(out)
+    cfg = train_config("train_nisqa_cnn_sa_ap.yaml", de_corpus, out, "partial.csv",
+                       csv_deg="filepath_deg", tr_epochs=2, tr_ds_to_memory=True,
+                       tr_device_cache_mb=80 * row_mb)
+    label = "train NISQA partial residency"
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            runner, launches["train_nisqa_partial_2_epochs"], rows, _, _ = run_training(
+                cfg, f"{label} (96 files, tr_device_cache_mb {80 * row_mb:.3f} = 80 rows of "
+                f"{row_mb:.4f} MB at bucket {bucket})", card)
+    finally:
+        advisory = [line for line in err.getvalue().splitlines() if "nisqa_tpu_torch:" in line]
+        print(f"{label} advisory: {advisory}", flush=True)
+    check(any("64/96 rows (longest files) stay device-resident" in a for a in advisory),
+          f"partial residency advisory {advisory}")
+    eng = runner.train_engine
+    n_val = len(runner.engine.plan(runner.ds_val.paths()))
+    chunks = corpus_report(eng, label, card)
+    check([h["steps"] for h in eng.history] == [3, 3], f"steps per epoch {eng.history}")
+    epoch_report(runner, rows, label, card)
+    # the build, one fill step per epoch for the 32-file tail, the cold validation batch
+    check(launches["train_nisqa_partial_2_epochs"] == chunks + 2 + n_val,
+          f"partial: {launches['train_nisqa_partial_2_epochs']} launches for {chunks} build "
+          f"chunks, 2 tail steps and {n_val} cold validation batches")
+    del runner, eng
+    torch.cuda.empty_cache()
 
     # NISQA_DIM: one epoch of the multidimensional finetune from phase 5's .tar
     out = os.path.join(tmp, "train_dim")
@@ -1159,8 +1364,8 @@ def training(tmp: str, dim_tar: str, paths, card: str):
     check_tars(run_dir, 1, "DIM finetune")
     del runner
 
-    # NISQA_DE: one epoch on 32 pairs of phase 10's corpus, two launches per step
-    de_corpus = os.path.join(tmp, "de_wavs")
+    # NISQA_DE: one epoch on 32 pairs of phase 10's corpus, two launches per
+    # step from the host fill; then (d) from the device corpus, two per build chunk
     deg = [f"de_48k_{i:03d}_deg.wav" for i in range(32)]
     de_mos = learnable_mos([os.path.join(de_corpus, d) for d in deg])
     with open(os.path.join(de_corpus, "train_pairs.csv"), "w", newline="") as f:
@@ -1168,20 +1373,31 @@ def training(tmp: str, dim_tar: str, paths, card: str):
         w.writerow(["deg", "ref", "db", "mos"])
         for i, (d, m) in enumerate(zip(deg, de_mos)):
             w.writerow([d, d.replace("_deg", "_ref"), "VAL" if i % 4 == 3 else "TRAIN", m])
-    out = os.path.join(tmp, "train_de")
-    os.makedirs(out)
-    cfg = train_config("train_nisqa_double_ended.yaml", de_corpus, out, "train_pairs.csv",
-                       csv_deg="deg", csv_ref="ref", tr_epochs=1)
-    runner, launches["train_de_1_epoch"], _, run_dir, _ = run_training(
-        cfg, "train NISQA_DE (train_nisqa_double_ended.yaml, 24 + 8 pairs, bs 32)", card)
-    n_val = len(runner.engine.plan(runner.ds_val.paths(), runner.ds_val.paths_ref()))
-    check(launches["train_de_1_epoch"] == 2 * (runner.train_engine.steps + n_val),
-          f"DE: {launches['train_de_1_epoch']} launches for {runner.train_engine.steps} steps "
-          f"and {n_val} validation batches, two ends each")
-    check_tars(run_dir, 1, "DE")
-    del runner
+    for run, over in (("train_de_1_epoch", {}), ("train_de_resident_1_epoch",
+                                                 {"tr_ds_to_memory": True})):
+        out = os.path.join(tmp, run)
+        os.makedirs(out)
+        cfg = train_config("train_nisqa_double_ended.yaml", de_corpus, out, "train_pairs.csv",
+                           csv_deg="deg", csv_ref="ref", tr_epochs=1, **over)
+        runner, launches[run], rows, run_dir, _ = run_training(
+            cfg, f"{run} (train_nisqa_double_ended.yaml, 24 + 8 pairs, bs 32)", card)
+        eng = runner.train_engine
+        n_val = len(runner.engine.plan(runner.ds_val.paths(), runner.ds_val.paths_ref()))
+        if over:
+            chunks = corpus_report(eng, run, card)
+            check(all("mel_ref" in c for c in eng._corpus.values()), "DE corpus without mel_ref")
+            epoch_report(runner, rows, run, card)
+            check(launches[run] == 2 * (chunks + n_val),
+                  f"DE resident: {launches[run]} launches for {chunks} build chunks and {n_val} "
+                  "validation batches, two ends each")
+        else:
+            check(launches[run] == 2 * (eng.steps + n_val),
+                  f"DE: {launches[run]} launches for {eng.steps} steps and {n_val} validation "
+                  "batches, two ends each")
+        check_tars(run_dir, 1, run)
+        del runner, eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, build_rows
 
 
 def import_check():
@@ -1249,7 +1465,7 @@ def main(argv=None):
         csv_launches = csv_and_evaluate(tmp, tar, paths, y_dir, opts.seed, card)
         de_launches = de_path(tmp, opts.seed, card)
         de_scorers(opts.seed, card)
-        train_launches = training(tmp, tar, paths, card)
+        train_launches, build_rows = training(tmp, tar, paths, opts.reps, card)
     import_check()
 
     fast, exact = main["fast"], main["exact"]
@@ -1259,7 +1475,7 @@ def main(argv=None):
         "source": "nisqa_tpu_torch/csrc/dft_mel.cu",
         "replaces": "nisqa_tpu/ops/pallas_mel.py:99",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results),
+        "max_abs_err": max(r["max_abs_err"] for r in results + build_rows),
         "ms": fast["kernel_ms"],
         "plain_ms": fast["twin_ms"],
         "bound_ms": fast["bound_ms"],
@@ -1277,6 +1493,12 @@ def main(argv=None):
         "tts_exact_plain_ms": tts["exact"]["twin_ms"],
         "tts_exact_bound_ms": tts["exact"]["bound_ms"],
         "tts_exact_bound_by": tts["exact"]["bound_by"],
+        # the device corpus's build: one 64-row chunk of the 48 kHz group, exact mode
+        "corpus_build_shape": {k: build_rows[0][k] for k in ("sr", "N", "span", "K", "M")},
+        "corpus_build_ms": build_rows[0]["kernel_ms"],
+        "corpus_build_plain_ms": build_rows[0]["twin_ms"],
+        "corpus_build_bound_ms": build_rows[0]["bound_ms"],
+        "corpus_build_bound_by": build_rows[0]["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
                              "tts_predict_dir": tts_launches, **csv_launches, **de_launches,
                              **train_launches},

@@ -428,11 +428,13 @@ class InferenceEngine:
         self._ring_next[key] = (j + 1) % RING_SLOTS
         return ring[j]
 
-    def _make_batch(self, slot: _Slot, chunk, audio, paths, buf_len, kind):
+    def _make_batch(self, slot: _Slot, chunk, audio, paths, buf_len, kind, n_threads=None):
         """Decode + reflect-pad one batch into ``slot`` (runs on the filler
-        thread). Rows past the chunk take row 0's length (finite, dropped
-        after the forward)."""
-        bs, pad, ms = self.batch_size, self.ms.n_fft // 2, self.ms
+        thread) with ``n_threads`` decode threads (None: ``num_workers``).
+        Rows past the chunk take row 0's length (finite, dropped after the
+        forward)."""
+        pad, ms = self.ms.n_fft // 2, self.ms
+        n_threads = n_threads or self.num_workers
         buf, n = slot.acquire(buf_len)
         if kind == "i16":
             # raw PCM16 transport: [left reflect][samples][right reflect]
@@ -454,10 +456,10 @@ class InferenceEngine:
                 (len(native_items), buf_len), dtype)
             src = [paths[i] for _, i in native_items]
             if kind == "i16":
-                ns, srs, status = native.fill_batch_i16(src, target, pad, n_threads=self.num_workers)
+                ns, srs, status = native.fill_batch_i16(src, target, pad, n_threads=n_threads)
             else:
                 ns, srs, status = native.fill_batch_f32(
-                    src, target, pad, channel=ms.channel, n_threads=self.num_workers)
+                    src, target, pad, channel=ms.channel, n_threads=n_threads)
             for row, (j, i) in enumerate(native_items):
                 if status[row] == 0:
                     validate_filled_row(ms, paths[i], ns[row], audio[i][2], srs[row])

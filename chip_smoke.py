@@ -90,7 +90,23 @@ never prints its last line):
      ``.tar``, and one of ``train_nisqa_double_ended.yaml`` on 32 of phase
      10's pairs from the host fill (two launches per step) and (d) resident
      (two per build chunk);
-  12. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
+  12. data parallel: each launch a ``torchrun --standalone`` subprocess of
+     this script (``--dp-worker``), killed whole on a timeout. (a) W = the
+     card count (1 on one card; on several, held to the W = 2 bounds)
+     over NCCL: ``run_train`` on the shipped
+     ``train_nisqa_cnn_sa_ap.yaml`` at full width, bs 32, one epoch at zero
+     dropout over phase 11's corpus, within 1e-6 (loss, parameters) of the
+     same epoch in this process without a launcher, one launch per fill
+     step and cold validation batch. (b) W = 2 on the one card over gloo:
+     phase 5's corpus served by NISQA_DIM at "highest" and at the default
+     precision and phase 10's pairs by NISQA_DE at "highest", within 1e-5
+     of this process's passes, each rank launching the kernel for its own
+     cold batches; the epoch of (a) from the host fill and resident (16
+     rows a rank), within 1e-4 (loss, relative) and 1e-3 (train and
+     validation predictions) of W = 1, parameters and BN buffers identical
+     on both ranks. Each rank's wall time and a train step's collectives
+     timed alone; the kernel at a W = 2 fill step's shape against its twin;
+  13. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
      of every port module loads no jax, pandas, yaml, tqdm, matplotlib or
      ``nisqa_tpu``.
 
@@ -139,6 +155,7 @@ WARM_REPS = 5                         # timed warm passes per engine
 SERVE_BOUND = 1e-5                    # every serving regime vs the cold pass, absolute
 TRAIN_LOSS_BOUND, TRAIN_GRAD_BOUND = 1e-4, 1e-3  # train step, kernel vs twin front-end
 BF16_PEAK, TF32_PEAK, HBM_RATE = 989e12, 495e12, 3.35e12  # H100 SXM data sheet, dense
+DP_TIMEOUT = 300                      # s, one torchrun launch of phase 12
 
 
 class SmokeFailure(RuntimeError):
@@ -361,6 +378,18 @@ def write_de_corpus(out_dir: str, seed: int):
         (write_float32 if i == 95 else write_pcm16)(os.path.join(out_dir, ref[-1]), y, sr)
         total += cut / sr
     return deg, ref, total
+
+
+def make_de_corpus(corpus: str, seed: int):
+    """The pair corpus in ``corpus`` with ``pairs.csv`` (deg, ref).
+    Returns (deg names, ref names, degraded audio-s)."""
+    os.makedirs(corpus)
+    deg, ref, audio_s = write_de_corpus(corpus, seed)
+    with open(os.path.join(corpus, "pairs.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["deg", "ref"])
+        w.writerows(zip(deg, ref))
+    return deg, ref, audio_s
 
 
 def make_corpus(tmp: str, meta, sd, seed: int):
@@ -845,13 +874,8 @@ def de_path(tmp: str, seed: int, card: str):
     from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
 
     corpus, out_dir = os.path.join(tmp, "de_wavs"), os.path.join(tmp, "de_out")
-    os.makedirs(corpus)
     os.makedirs(out_dir)
-    deg, ref, audio_s = write_de_corpus(corpus, seed)
-    with open(os.path.join(corpus, "pairs.csv"), "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(["deg", "ref"])
-        w.writerows(zip(deg, ref))
+    deg, ref, audio_s = make_de_corpus(corpus, seed)
     paths = [os.path.join(corpus, d) for d in deg]
     paths_ref = [os.path.join(corpus, r) for r in ref]
 
@@ -997,6 +1021,21 @@ def learnable_mos(paths):
         f0 = (lo + int(np.argmax(spec[lo:hi]))) * sr / len(seg)
         mos.append(float(np.clip(1.0 + 4.0 * (f0 - 100.0) / 200.0, 1.0, 5.0)))
     return np.round(mos, 2)
+
+
+def write_train_csv(paths):
+    """``train.csv`` beside phase 5's corpus: every 4th 48 kHz file is db
+    VAL, the rest (the 16 kHz files among them) db TRAIN; MOS from each
+    file's pitch, the dimensions MOS plus seeded noise."""
+    mos = learnable_mos(paths)
+    rng = np.random.default_rng(1)
+    names = [os.path.basename(p) for p in paths]
+    dbs = ["VAL" if "_48k_" in n and i % 4 == 3 else "TRAIN" for i, n in enumerate(names)]
+    with open(os.path.join(os.path.dirname(paths[0]), "train.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["filepath_deg", "db", "mos", "noi", "dis", "col", "loud"])
+        for n, db, m in zip(names, dbs, mos):
+            w.writerow([n, db, m, *np.round(np.clip(m + rng.normal(0, 0.3, 4), 1, 5), 2)])
 
 
 def train_config(name: str, corpus: str, out_dir: str, csv_file: str, **over) -> str:
@@ -1212,17 +1251,7 @@ def training(tmp: str, dim_tar: str, paths, reps: int, card: str):
 
     corpus = os.path.dirname(paths[0])
     launches = {}
-    # the corpus of phase 5 in a labelled CSV: every 4th 48 kHz file is db VAL,
-    # the rest (the 16 kHz files among them) db TRAIN
-    mos = learnable_mos(paths)
-    rng = np.random.default_rng(1)
-    names = [os.path.basename(p) for p in paths]
-    dbs = ["VAL" if "_48k_" in n and i % 4 == 3 else "TRAIN" for i, n in enumerate(names)]
-    with open(os.path.join(corpus, "train.csv"), "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(["filepath_deg", "db", "mos", "noi", "dis", "col", "loud"])
-        for n, db, m in zip(names, dbs, mos):
-            w.writerow([n, db, m, *np.round(np.clip(m + rng.normal(0, 0.3, 4), 1, 5), 2)])
+    write_train_csv(paths)
 
     # the main path: NISQA from scratch, full width, 2 epochs at bs 32, host fill
     out = os.path.join(tmp, "train_nisqa")
@@ -1400,6 +1429,267 @@ def training(tmp: str, dim_tar: str, paths, reps: int, card: str):
     return launches, build_rows
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def dp_worker(job_path: str):
+    """One rank of phase 12, run by ``torchrun ... chip_smoke.py --dp-worker
+    JOB``: each serving run of the job through ``NisqaTorch.predict`` and
+    each training run through ``run_train.main``, the kernel's count zeroed
+    just before each and read just after; then the step's collectives
+    timed alone. Writes ``rank<r>.pt`` into the job's ``out`` directory."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from nisqa_tpu_torch import run_train
+    from nisqa_tpu_torch.model import NisqaTorch
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+    from nisqa_tpu_torch.parallel.mesh import all_reduce_grads, barrier
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cudnn.deterministic = True  # as phase 12's runs in the main process
+    out = {}
+    for name, args in job["serve"].items():
+        fused_dft_mel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner = NisqaTorch(args)
+        runner.predict()
+        torch.cuda.synchronize()
+        ds = runner.ds_val
+        out[f"serve/{name}"] = {
+            "y": np.stack([np.asarray(ds.df[c], np.float64) for c in ds.df.columns
+                           if c.endswith("_pred")], axis=1),
+            "launches": fused_dft_mel.LAUNCHES, "wall_s": time.perf_counter() - t0,
+            "batches": len(runner.engine.plan(ds.paths(), ds.paths_ref()))}
+    for name, cfg in job["train"].items():
+        fused_dft_mel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner = run_train.main(["--yaml", cfg])
+        torch.cuda.synchronize()
+        eng = runner.train_engine
+        out[f"train/{name}"] = {
+            "loss": eng.history[-1]["loss"], "steps": eng.steps, "wall_s": time.perf_counter() - t0,
+            "epoch_s": eng.history[-1]["wall_s"], "val_s": eng.history[-1]["val_s"],
+            "launches": fused_dft_mel.LAUNCHES, "device": str(runner.device),
+            "val_batches": len(runner.engine.plan(runner.ds_val.paths())),
+            "chunks": sum(c["mel"].shape[0] // 64 for c in (eng._corpus or {}).values()),
+            "y_train": np.asarray(runner.ds_train.df["mos_pred"], np.float64),
+            "y_val": np.asarray(runner.ds_val.df["mos_pred"], np.float64),
+            "sd": {k: v.detach().cpu() for k, v in runner.model.state_dict().items()}}
+    dp = runner.dp
+    # the collectives of one train step, alone: per BN call of the forward
+    # the all-reduce of (n, sum w x) and of the squared deviations, and in
+    # the backward one of each's gradient; then the gradients' all-reduce
+    bns = [m for m in runner.model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    sizes = [c for m in bns for c in (m.num_features + 1, m.num_features) * 2]
+    bufs = [torch.zeros(n, device=dp.device) for n in sizes]
+    params = [p for p in runner.model.parameters() if p.grad is not None]
+
+    def bn():
+        for b in bufs:
+            dist.all_reduce(b, group=dp.group)
+
+    out["collectives"] = {"bn_calls": len(sizes), "grad_floats": sum(p.numel() for p in params)}
+    for key, fn in (("bn_ms", bn), ("grad_ms", lambda: all_reduce_grads(params, dp.group))):
+        fn()
+        barrier(dp.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        out["collectives"][key] = 1e3 * (time.perf_counter() - t0) / 20
+    out.update(rank=dp.rank, size=dp.size, backend=dp.backend)
+    torch.save(out, os.path.join(job["out"], f"rank{dp.rank}.pt"))
+
+
+def launch_ranks(n: int, job: dict, tmp: str, label: str):
+    """``torchrun --standalone --nproc_per_node n chip_smoke.py --dp-worker``
+    on ``job``, in a session of its own that is killed whole on a timeout;
+    fails when any rank fails. Returns each rank's results and the wall s."""
+    os.makedirs(job["out"])
+    job_path = os.path.join(job["out"], "job.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    log_path = os.path.join(tmp, f"{label}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", str(n), os.path.abspath(__file__),
+                                 "--dp-worker", job_path], stdout=log, stderr=subprocess.STDOUT,
+                                cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            print(f.read()[-6000:], flush=True)
+    check(rc == 0, f"{label}: torchrun --nproc_per_node {n} ended with {rc}")
+    return [torch.load(os.path.join(job["out"], f"rank{r}.pt"), weights_only=False)
+            for r in range(n)], wall
+
+
+def report_ranks(label: str, ranks, wall: float, card: str):
+    for r in ranks:
+        runs = ", ".join(
+            f"{k} {v['wall_s']:.3f} s" + (f" (epoch {v['epoch_s']:.3f} s, validation "
+                                           f"{v['val_s']:.3f} s)" if "epoch_s" in v else "")
+            for k, v in r.items() if isinstance(v, dict) and "wall_s" in v)
+        c = r["collectives"]
+        print(f"{label} rank {r['rank']}/{r['size']} ({r['backend']}): {runs}; a train step's "
+              f"collectives alone: {c['bn_calls']} BN all-reduces {c['bn_ms']:.3f} ms, gradient "
+              f"all-reduce of {c['grad_floats']} floats {c['grad_ms']:.3f} ms on {card}",
+              flush=True)
+    print(f"{label}: torchrun wall {wall:.3f} s (process start, CUDA set-up and the group "
+          f"included) on {card}", flush=True)
+
+
+def max_param_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a if a[k].numel())
+
+
+def data_parallel(tmp: str, tar: str, paths, build_frames: int, reps: int, card: str):
+    """Phase 12: serving and training over a ``torch.distributed`` group.
+    (a) W = the card count (1 here) over NCCL: ``run_train`` on
+    ``train_nisqa_cnn_sa_ap.yaml`` (full width, bs 32, one epoch at zero
+    dropout and lr 3e-5 over phase 11's corpus) against the same epoch
+    without a launcher. (b) W = 2 (over gloo on one card, NCCL on two or
+    more): NISQA_DIM serving at both precisions and NISQA_DE at "highest"
+    against this process's passes, and the training epoch from the host
+    fill and resident against the epoch without a launcher. Returns ({run:
+    launches per rank}, the kernel's rows at a W = 2 train step's shape).
+
+    Every run of the phase takes cuDNN's deterministic algorithms
+    (:func:`cudnn_deterministic` here, ``dp_worker`` in the ranks): Adam
+    moves a weight whose gradient is zero in exact arithmetic (a conv bias
+    ahead of a batch norm) by up to lr a step in a direction set by
+    rounding noise, so two runs compare only where their arithmetic is the
+    same (W = 1: bit-equal), and at an lr (3e-5, as
+    ``tests/test_torch_train_epoch.py``) where the noise stays under the
+    bounds when it differs (W > 1 sums BN statistics in another order)."""
+    from nisqa_tpu_torch.data.pipeline import MsConfig
+    from nisqa_tpu_torch.model import NisqaTorch
+
+    corpus = os.path.dirname(paths[0])
+    no_drop = {"cnn_dropout": 0.0, "td_sa_dropout": 0.0, "pool_att_dropout": 0.0,
+               "td_2_sa_dropout": 0.0, "tr_epochs": 1, "tr_lr": 3e-5, "tr_parallel": True}
+    cards = torch.cuda.device_count()
+    launches = {}
+
+    def train_cfg(run: str, **over):
+        out = os.path.join(tmp, run)
+        os.makedirs(out)
+        return train_config("train_nisqa_cnn_sa_ap.yaml", corpus, out, "train.csv",
+                            csv_deg="filepath_deg", **no_drop, **over)
+
+    def backend(w: int) -> str:
+        return "nccl" if w <= cards else "gloo"
+
+    # the epoch without a launcher: this process, one card
+    ref, _, _, _, _ = run_training(train_cfg("dp_ref"), "data parallel reference (no launcher)",
+                                   card)
+    ref_sd = {k: v.detach().cpu() for k, v in ref.model.state_dict().items()}
+    ref_loss = ref.train_engine.history[-1]["loss"]
+    ref_s = {k: ref.train_engine.history[-1][k] for k in ("wall_s", "val_s")}
+    ref_y = {k: np.asarray(getattr(ref, f"ds_{k}").df["mos_pred"], np.float64)
+             for k in ("train", "val")}
+    del ref
+    torch.cuda.empty_cache()
+
+    def check_train(label: str, name: str, ranks):
+        """The ranks' epoch against the one without a launcher: bit-equal
+        at W = 1; else within the train bounds, every rank's weights and BN
+        buffers identical. One launch per fill step (or build chunk) and
+        cold validation batch of the rank."""
+        got = [r[f"train/{name}"] for r in ranks]
+        w = len(got)
+        rel = abs(got[0]["loss"] - ref_loss) / abs(ref_loss)
+        d_y = max(float(np.abs(g[f"y_{k}"] - ref_y[k]).max()) for g in got for k in ref_y)
+        if w == 1:
+            d_par = max_param_diff(got[0]["sd"], ref_sd)
+            same = (f"parameters and buffers max |diff| {d_par:.3e} off the run without a "
+                    f"launcher (bound 1e-6)")
+            ok = abs(got[0]["loss"] - ref_loss) <= 1e-6 and d_par <= 1e-6
+        else:
+            d_par = max(max_param_diff(got[0]["sd"], g["sd"]) for g in got[1:])
+            same = f"parameters and BN buffers rank 0 vs the others max |diff| {d_par} (bound 0.0)"
+            ok = (rel <= TRAIN_LOSS_BOUND and d_y <= PASS_BOUND and d_par == 0.0
+                  and all(g["loss"] == got[0]["loss"] for g in got))
+        expect = [g["chunks" if "resident" in name else "steps"] + g["val_batches"] for g in got]
+        print(f"{label} training {name} ({-(-BATCH // w)} rows a rank): loss {got[0]['loss']} vs "
+              f"{ref_loss} without a launcher, rel {rel:.3e} (bound {TRAIN_LOSS_BOUND} at W > 1); "
+              f"train and validation predictions max_abs_diff {d_y:.3e} (bound {PASS_BOUND}); "
+              f"{same}; {got[0]['steps']} steps, fused_dft_mel launches per rank "
+              f"{[g['launches'] for g in got]} (expected {expect}); epoch (first in its "
+              f"process) per rank {[round(g['epoch_s'], 4) for g in got]} s, validation "
+              f"{[round(g['val_s'], 4) for g in got]} s, vs {ref_s['wall_s']:.4f} s and "
+              f"{ref_s['val_s']:.4f} s at W = 1 without a launcher on {card}", flush=True)
+        check(ok, f"{label} {name} at W = {w}: off the run without a launcher")
+        check([g["launches"] for g in got] == expect, f"{label} {name}: launches per rank")
+        check([r["backend"] for r in ranks] == [backend(w)] * w, f"{label}: backend")
+        launches[f"dp_{name}_train"] = [g["launches"] for g in got]
+
+    # (a) W = the card count over NCCL
+    ranks, wall = launch_ranks(cards, {"out": os.path.join(tmp, "dp_a"), "serve": {},
+                                       "train": {f"w{cards}": train_cfg("dp_a_run")}}, tmp, "dp_a")
+    report_ranks("data parallel (a)", ranks, wall, card)
+    check_train("data parallel (a)", f"w{cards}", ranks)
+
+    # (b) W = 2: two ranks on the one card over gloo (or on two cards over NCCL)
+    serve_base = {"tr_bs_val": BATCH, "tr_num_workers": 4, "tr_parallel": True, "output_dir": None}
+    serve = {
+        "dim_highest": {**serve_base, "mode": "predict_dir", "pretrained_model": tar,
+                        "data_dir": corpus, "precision": "highest"},
+        "dim_default": {**serve_base, "mode": "predict_dir", "pretrained_model": tar,
+                        "data_dir": corpus},
+        "de_highest": {**serve_base, "mode": "predict_csv", "pretrained_model": DE_TAR,
+                       "data_dir": os.path.join(tmp, "de_wavs"), "csv_file": "pairs.csv",
+                       "csv_deg": "deg", "precision": "highest"}}
+    ref_serve = {}
+    for name, args in serve.items():
+        r = NisqaTorch(dict(args))
+        with contextlib.redirect_stdout(io.StringIO()):
+            r.predict()
+        ref_serve[name] = np.stack([np.asarray(r.ds_val.df[c], np.float64)
+                                    for c in r.ds_val.df.columns if c.endswith("_pred")], axis=1)
+        del r
+    ranks, wall = launch_ranks(2, {"out": os.path.join(tmp, "dp_b"), "serve": serve, "train": {
+        "w2": train_cfg("dp_w2"), "w2_resident": train_cfg("dp_w2_res", tr_ds_to_memory=True)}},
+        tmp, "dp_b")
+    report_ranks("data parallel (b)", ranks, wall, card)
+    for name in serve:
+        got = [r[f"serve/{name}"] for r in ranks]
+        diff = max(float(np.abs(g["y"] - ref_serve[name]).max()) for g in got)
+        ends = 2 if name.startswith("de") else 1
+        print(f"data parallel (b) serving {name}: max_abs_diff vs one process {diff:.3e} (bound "
+              f"{SERVE_BOUND}); fused_dft_mel launches per rank {[g['launches'] for g in got]} "
+              f"for its {[g['batches'] for g in got]} cold batches x {ends} end(s) on {card}",
+              flush=True)
+        check(diff <= SERVE_BOUND, f"W = 2 serving {name} off by {diff}")
+        check(all(g["launches"] == ends * g["batches"] and g["batches"] > 0 for g in got),
+              f"W = 2 serving {name}: launches {[g['launches'] for g in got]}")
+        launches[f"dp_w2_{name}"] = [g["launches"] for g in got]
+    for name in ("w2", "w2_resident"):
+        check_train("data parallel (b)", name, ranks)
+    # the kernel at a W = 2 fill step's shape: 16 rows of the 48 kHz bucket
+    rows = kernel_case("W = 2 train shard", MsConfig(YAML_GEOMETRY), 48000, 16 * build_frames,
+                       ("exact",), reps, np.random.default_rng(3), card)
+    return launches, rows
+
+
 def import_check():
     """The port loaded nothing of JAX or of the JAX package in this run, and
     importing it and all its submodules in a fresh process after torch loads
@@ -1413,6 +1703,7 @@ def import_check():
             "import nisqa_tpu_torch\n"
             "for m in pkgutil.walk_packages(nisqa_tpu_torch.__path__, 'nisqa_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "assert 'nisqa_tpu_torch.parallel.mesh' in sys.modules\n"
             "print(sorted(m for m in sys.modules if m not in base and m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml', 'tqdm', 'matplotlib')))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
@@ -1428,7 +1719,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every generated input")
     ap.add_argument("--reps", type=int, default=5, help="timed repetitions per kernel case")
+    ap.add_argument("--dp-worker", metavar="JOB", help=argparse.SUPPRESS)  # a rank of phase 12
     opts = ap.parse_args(argv)
+    if opts.dp_worker:
+        return dp_worker(opts.dp_worker)
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available: chip_smoke.py runs on a CUDA card only")
     sys.path.insert(0, REPO)
@@ -1451,7 +1745,7 @@ def main(argv=None):
     print(f"SASS: {n_hgmma} HGMMA (wgmma) instructions", flush=True)
     check(n_hgmma > 0, "no HGMMA instruction in the kernel library: the tensor cores are unused")
 
-    # 3-11
+    # 3-12
     results, main, tts = kernel_vs_twin(opts.seed, opts.reps, card)
     meta, sd = model_golden("g2_dim")
     meta_tts, sd_tts = model_golden("g3_tts")
@@ -1466,6 +1760,9 @@ def main(argv=None):
         de_launches = de_path(tmp, opts.seed, card)
         de_scorers(opts.seed, card)
         train_launches, build_rows = training(tmp, tar, paths, opts.reps, card)
+        with cudnn_deterministic():
+            dp_launches, dp_rows = data_parallel(tmp, tar, paths, build_rows[0]["N"] // 64,
+                                                 opts.reps, card)
     import_check()
 
     fast, exact = main["fast"], main["exact"]
@@ -1475,7 +1772,7 @@ def main(argv=None):
         "source": "nisqa_tpu_torch/csrc/dft_mel.cu",
         "replaces": "nisqa_tpu/ops/pallas_mel.py:99",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results + build_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in results + build_rows + dp_rows),
         "ms": fast["kernel_ms"],
         "plain_ms": fast["twin_ms"],
         "bound_ms": fast["bound_ms"],
@@ -1499,9 +1796,17 @@ def main(argv=None):
         "corpus_build_plain_ms": build_rows[0]["twin_ms"],
         "corpus_build_bound_ms": build_rows[0]["bound_ms"],
         "corpus_build_bound_by": build_rows[0]["bound_by"],
+        # a W = 2 train step's fill: 16 rows of the 48 kHz group's bucket, exact mode
+        "dp_shard_shape": {k: dp_rows[0][k] for k in ("sr", "N", "span", "K", "M")},
+        "dp_shard_ms": dp_rows[0]["kernel_ms"],
+        "dp_shard_plain_ms": dp_rows[0]["twin_ms"],
+        "dp_shard_bound_ms": dp_rows[0]["bound_ms"],
+        "dp_shard_bound_by": dp_rows[0]["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
                              "tts_predict_dir": tts_launches, **csv_launches, **de_launches,
                              **train_launches},
+        # phase 12: per rank
+        "launches_by_rank": dp_launches,
     }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)

@@ -31,6 +31,15 @@ double-ended models (``stats["last"]["mode"]`` names the regime):
           resident; the cold tail is re-scanned and re-filled every pass
 
 Every regime ends in one device->host readback per pass (``fetch``).
+
+Data parallel (``mesh``, a :class:`..parallel.mesh.DataParallel`): every
+rank scans and plans the whole list (the plan is deterministic) and runs
+the batches ``plan[rank::W]`` through the regimes above; the (N, K) result
+is assembled on every rank by one SUM all-reduce of the rows each rank
+computed. ``nisqa_tpu`` splits the rows of every batch over its mesh
+instead; in eval rows do not interact, so each rank runs whole batches at
+the single-device shapes and every prediction equals the single-device
+one. ``stats`` and the corpus cache are per rank.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from ..audio import wav as wavio
 from ..audio.filters import mel_filterbank, padded_window
 from ..audio.melspec import pad_audio_for_batch
 from ..ops.dft_mel import fused_dft_mel
+from ..parallel.mesh import sum_rows
 from . import native
 from .front_end import frame_geometry, mel_fn, seg_fn
 
@@ -262,14 +272,17 @@ class InferenceEngine:
     step; the default launches the CUDA kernel for device tensors.
     ``fuse_pass``: None/True concatenate same-shape resident mel blocks for
     cached passes; False runs cached passes batch by batch. ``cache_mb``:
-    device budget of the corpus mel cache (0 turns it off).
+    device budget of the corpus mel cache (0 turns it off). ``mesh``: the
+    rank's :class:`..parallel.mesh.DataParallel` record (None: this process
+    alone); every rank of its group must make the same calls.
     """
 
     def __init__(self, model, ms: MsConfig, device, batch_size: int = 32,
                  num_workers: int = 8, precision: str | None = "default",
                  fe_precision: str | None = None, dft_mel=fused_dft_mel,
-                 fuse_pass: bool | None = None, cache_mb: float = 512):
+                 fuse_pass: bool | None = None, cache_mb: float = 512, mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
         self.ms = ms
         self.batch_size = int(batch_size)
@@ -400,13 +413,18 @@ class InferenceEngine:
         return paths_ref
 
     def _scan_plan(self, paths, paths_ref):
-        """(degraded-end audio, reference-end audio or None, plan)."""
+        """(degraded-end audio, reference-end audio or None, plan); under a
+        mesh the plan is the rank's share, ``plan[rank::W]``."""
         audio = self._scan_transport(paths)
         audio_ref = self._scan_transport(paths_ref) if paths_ref is not None else None
-        return audio, audio_ref, self._plan_for(self._metas_for(audio, audio_ref))
+        plan = self._plan_for(self._metas_for(audio, audio_ref))
+        if self.mesh is not None:
+            plan = plan[self.mesh.rank :: self.mesh.size]
+        return audio, audio_ref, plan
 
     def plan(self, paths, paths_ref=None):
-        """The batching plan :meth:`predict_paths` runs for ``paths``."""
+        """The batching plan :meth:`predict_paths` runs for ``paths`` (on
+        this rank, under a mesh)."""
         paths = list(paths)
         return self._scan_plan(paths, self._check_ref(paths, paths_ref))[2]
 
@@ -788,7 +806,9 @@ class InferenceEngine:
         handle (it waits on the copy's CUDA event), so the caller can
         dispatch the next pass first; cold and partial passes resolve
         eagerly (their staging slots are reused by the next pass) and the
-        handle hands the result back.
+        handle hands the result back. Under a mesh every rank makes the
+        same passes in the same order; each pass's all-reduce runs at
+        dispatch, so the handles resolve in any order.
         """
         if fetch not in (True, False, "async"):
             raise ValueError(f"fetch must be True, False or 'async', got {fetch!r}")
@@ -858,7 +878,9 @@ class InferenceEngine:
 
     def _scatter(self, all_y, chunks, N):
         """Rows j*bs .. j*bs+len(chunk) of the pass's outputs belong to the
-        j-th batch's files."""
+        j-th batch's files. Under a mesh the all-reduce put them there."""
+        if self.mesh is not None:
+            return all_y
         bs = self.batch_size
         out = np.zeros((N, all_y.shape[1]), dtype=np.float32)
         for j, chunk in enumerate(chunks):
@@ -876,9 +898,29 @@ class InferenceEngine:
         done.record(torch.cuda.current_stream(self.device))
         return host, done
 
+    def _sum_ranks(self, ys, chunks, N):
+        """(N, K) on the device of every rank: the rows of this rank's
+        batches at their files, zeros elsewhere, summed over the ranks."""
+        bs = self.batch_size
+        pos = [j * bs + r for j, chunk in enumerate(chunks) for r in range(len(chunk))]
+        rows = torch.tensor([i for chunk in chunks for i in chunk], dtype=torch.int64)
+        if ys:
+            values = torch.cat(ys)[torch.tensor(pos, dtype=torch.int64).to(self.device)]
+        else:  # more ranks than batches: this rank computed nothing
+            values = torch.zeros((0, 5 if self.model.dim else 1), device=self.device)
+        return sum_rows(rows.to(self.device), values, N, self.mesh.group)
+
     def _collect(self, ys, chunks, N, fetch, timings):
+        """The pass's (N, K) result from its batches' outputs ``ys``: one
+        device->host readback, then the rows are put at their files. Under
+        a mesh the rows are put on the device instead, by the pass's one
+        all-reduce (:meth:`_sum_ranks`), made here at dispatch whatever the
+        regime or ``fetch``, so every rank makes it at the same point."""
         t0 = time.perf_counter()
-        all_dev = torch.cat(ys) if len(ys) > 1 else ys[0]
+        if self.mesh is not None:
+            all_dev = self._sum_ranks(ys, chunks, N)
+        else:
+            all_dev = torch.cat(ys) if len(ys) > 1 else ys[0]
         if fetch == "async":
             host, done = self._readback(all_dev)
 

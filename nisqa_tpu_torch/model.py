@@ -13,10 +13,19 @@ port's pandas-free :class:`.data.dataset.Table`.
 The device is the args key ``tr_device`` (the reference's): None means
 "cuda", and a missing card raises instead of running on the CPU. Only an
 explicit ``tr_device="cpu"`` runs on the CPU, with the kernels' plain twins.
+
+Data parallel (``tr_parallel`` under ``torchrun``): the runner joins the
+process group (:func:`.parallel.mesh.init_data_parallel`) before it builds
+anything on the device, takes its rank's card, starts from rank 0's
+weights, and gives the group to the serving engine and the train engine.
+Files (the results CSV, the run's YAML, checkpoints) are written and the
+runner's prints made on rank 0 only. ``profile_dir`` traces ``predict``
+and ``train`` with ``torch.profiler`` into one Chrome trace per rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from glob import glob
@@ -30,6 +39,7 @@ from .compat.checkpoint import build_from_args, load_torch_checkpoint
 from .data.dataset import SpeechDataset, Table
 from .data.pipeline import InferenceEngine, MsConfig
 from .eval.report import eval_results
+from .parallel.mesh import broadcast_module, init_data_parallel
 
 
 def resolve_device(tr_device) -> torch.device:
@@ -53,11 +63,21 @@ class NisqaTorch:
         self.args.setdefault("mode", "main")
         self.runinfos = {}
         self.engine = None
+        self.dp = None  # the rank's DataParallel record under a launcher
+        self.log = print  # the runner's prints: a no-op on ranks other than 0
         self._load_model()
         self._load_datasets()
-        self.args["now"] = datetime.datetime.today()
+        now = [datetime.datetime.today()]
+        if self.dp is not None:  # one run name on every rank
+            torch.distributed.broadcast_object_list(now, src=0, group=self.dp.group)
+        self.args["now"] = now[0]
         if self.args["mode"] == "main":
-            print(yaml_lite.dumps(self.args))
+            self.log(yaml_lite.dumps(self.args))
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's files: rank 0, or the only one."""
+        return self.dp is None or self.dp.rank == 0
 
     def _load_model(self):
         ckpt = None
@@ -80,18 +100,26 @@ class NisqaTorch:
             args["csv_ref"] = None
 
         self.device = resolve_device(args.get("tr_device"))
+        # the group and the rank's card come before any stream or generator
+        self.dp = init_data_parallel(args, self.device)
+        if self.dp is not None:
+            self.device = self.dp.device
+            if self.dp.rank != 0:
+                self.log = _no_print
         if ckpt is not None:
             model = build_from_args(args)
-            print("Model architecture: " + args["model"])
+            self.log("Model architecture: " + args["model"])
             model.load_state_dict(ckpt["state_dict"], strict=True)
-            print("Loaded pretrained model from " + args["pretrained_model"])
+            self.log("Loaded pretrained model from " + args["pretrained_model"])
         else:
             # a fresh model from the args' seed, leaving the global generator as it was
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(int(args.get("seed") or 0))
                 model = build_from_args(args)
-            print("Model architecture: " + args["model"])
+            self.log("Model architecture: " + args["model"])
         self.model = model.to(self.device).eval()
+        if self.dp is not None:
+            broadcast_module(self.model, self.dp.group)
         self.ms = MsConfig(args)
 
     # -- datasets ------------------------------------------------------------
@@ -153,7 +181,7 @@ class NisqaTorch:
             dcon = Table.read_csv(os.path.join(data_dir, args["csv_con"]))
             dcon_train, dcon_val = select(dcon, args["csv_db_train"]), select(dcon, args["csv_db_val"])
         df_train, df_val = select(dfile, args["csv_db_train"]), select(dfile, args["csv_db_val"])
-        print(f"Training size: {len(df_train)}, Validation size: {len(df_val)}")
+        self.log(f"Training size: {len(df_train)}, Validation size: {len(df_val)}")
         self.ds_train = self._mk_ds(df_train, dcon_train, data_dir, args["csv_deg"],
                                     ref_col=args.get("csv_ref"),
                                     mos_column=args.get("csv_mos_train"))
@@ -169,7 +197,7 @@ class NisqaTorch:
         if codec.available():
             exts += ["*.mp3", "*.ogg", "*.m4a", "*.opus"]
         files = sorted(f for e in exts for f in glob(os.path.join(self.args["data_dir"], e)))
-        print(f"# files: {len(files)}")
+        self.log(f"# files: {len(files)}")
         if not files:
             raise ValueError("No wav/flac files found in data_dir")
         df = Table({"deg": np.array([os.path.basename(f) for f in files], dtype=object)})
@@ -190,21 +218,41 @@ class NisqaTorch:
                 fuse_pass=args.get("fuse_pass"),
                 # null keeps the default; an explicit 0 turns the cache off
                 cache_mb=512 if args.get("serving_cache_mb") is None else args["serving_cache_mb"],
+                mesh=self.dp,
             )
         return self.engine
+
+    def _profiled(self):
+        """A ``torch.profiler`` trace of the enclosed work (host and, on the
+        card, device activity) written to ``profile_dir`` as one Chrome trace
+        per rank, when the args set ``profile_dir``; else nothing."""
+        trace_dir = self.args.get("profile_dir")
+        if not trace_dir:
+            return contextlib.nullcontext()
+        from torch.profiler import ProfilerActivity, profile
+
+        rank = 0 if self.dp is None else self.dp.rank
+        path = os.path.join(trace_dir, f"{self.args['mode']}_rank{rank}.pt.trace.json")
+        os.makedirs(trace_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities, on_trace_ready=lambda p: p.export_chrome_trace(path))
 
     def predict(self) -> Table:
         """Scores every path; adds the ``*_pred`` columns to the dataset's
         table, writes it as ``NISQA_results.csv`` (with ``model``) when
         ``output_dir`` is set, prints it and returns it."""
-        print("---> Predicting ...")
-        y_hat = self._engine().predict_paths(self.ds_val.paths(), self.ds_val.paths_ref())
+        self.log("---> Predicting ...")
+        with self._profiled():
+            y_hat = self._engine().predict_paths(self.ds_val.paths(), self.ds_val.paths_ref())
         self.ds_val.write_predictions(y_hat)
         df = self.ds_val.df
         if self.args.get("output_dir"):
             df["model"] = self.args["name"]
-            df.to_csv(os.path.join(self.args["output_dir"], "NISQA_results.csv"))
-        print(df.to_string())
+            if self.is_main:
+                df.to_csv(os.path.join(self.args["output_dir"], "NISQA_results.csv"))
+        self.log(df.to_string())
         return df
 
     # -- training ------------------------------------------------------------
@@ -214,20 +262,22 @@ class NisqaTorch:
         ``train_mos`` otherwise); the train engine stays in ``train_engine``."""
         from .train.loop import train_dim, train_mos
 
-        if self.args["dim"]:
-            train_dim(self)
-        else:
-            train_mos(self)
+        with self._profiled():
+            if self.args["dim"]:
+                train_dim(self)
+            else:
+                train_mos(self)
 
     def _make_runname_and_write_yaml(self):
         """``<name>_<now>``: creates ``output_dir/<runname>/`` and writes the
-        args (without ``now``) there as ``<runname>.yaml``."""
+        args (without ``now``) there as ``<runname>.yaml`` (on rank 0)."""
         runname = self.args["name"] + "_" + self.args["now"].strftime("%y%m%d_%H%M%S%f")
-        print("runname: " + runname)
-        run_dir = os.path.join(self.args["output_dir"], runname)
-        os.makedirs(run_dir, exist_ok=True)
-        yaml_lite.dump({k: v for k, v in self.args.items() if k != "now"},
-                       os.path.join(run_dir, runname + ".yaml"))
+        self.log("runname: " + runname)
+        if self.is_main:
+            run_dir = os.path.join(self.args["output_dir"], runname)
+            os.makedirs(run_dir, exist_ok=True)
+            yaml_lite.dump({k: v for k, v in self.args.items() if k != "now"},
+                           os.path.join(run_dir, runname + ".yaml"))
         return runname
 
     # -- evaluation ----------------------------------------------------------
@@ -239,19 +289,21 @@ class NisqaTorch:
         if self.args["dim"]:
             self._evaluate_dim(mapping, do_print, do_plot)
         else:
-            print("--> MOS:")
+            self.log("--> MOS:")
             self.db_results, self.r = self._eval_one("mos", "mos_pred", mapping, do_print, do_plot)
 
     def _eval_one(self, target, pred, mapping, do_print, do_plot):
         db_results, r = eval_results(
             self.ds_val.df, dcon=self.ds_val.df_con, target_mos=target,
-            target_ci=f"{target}_ci", pred=pred, mapping=mapping, do_print=do_print,
-            do_plot=do_plot, plot_dir=self.args.get("output_dir"),
+            target_ci=f"{target}_ci", pred=pred, mapping=mapping,
+            do_print=do_print and self.is_main, do_plot=do_plot and self.is_main,
+            plot_dir=self.args.get("output_dir"),
         )
         if self.ds_val.df_con is None:
-            print(f"r_p_mean_file: {r['r_p_mean_file']:0.2f}, rmse_mean_file: {r['rmse_mean_file']:0.2f}")
+            self.log(f"r_p_mean_file: {r['r_p_mean_file']:0.2f}, "
+                     f"rmse_mean_file: {r['rmse_mean_file']:0.2f}")
         else:
-            print(
+            self.log(
                 f"r_p_mean_con: {r['r_p_mean_con']:0.2f}, rmse_mean_con: {r['rmse_mean_con']:0.2f}, "
                 f"rmse_star_map_mean_con: {r['rmse_star_map_mean_con']:0.2f}"
             )
@@ -261,7 +313,7 @@ class NisqaTorch:
         targets = [("mos", "MOS"), ("noi", "NOI"), ("dis", "DIS"), ("col", "COL"), ("loud", "LOUD")]
         self.r = {}
         for t, label in targets:
-            print(f"--> {label}:")
+            self.log(f"--> {label}:")
             db_res, r = self._eval_one(t, f"{t}_pred", mapping, do_print, do_plot)
             setattr(self, f"db_results_val_{t}", db_res)
             self.r.update({(k if t == "mos" else f"{k}_{t}"): v for k, v in r.items()})
@@ -270,4 +322,8 @@ class NisqaTorch:
         r_mean = np.mean(
             [self.r["r_p_mean_con"]] + [self.r[f"r_p_mean_con_{t}"] for t, _ in targets[1:]]
         )
-        print(f"\nAverage over MOS and dimensions: r_p={r_mean:0.3f}")
+        self.log(f"\nAverage over MOS and dimensions: r_p={r_mean:0.3f}")
+
+
+def _no_print(*args, **kwargs):
+    """The runner's ``log`` on ranks other than 0."""

@@ -5,9 +5,10 @@ densely as one NCHW batch (B*T, 1, n_mels, seg_length); padded segments are
 masked downstream, which is output-equivalent in eval. In train mode every
 batch norm takes its statistics over the valid segments only
 (:func:`.modules.masked_batch_norm`, the validity ``w`` of each of the B*T
-rows) and the reference's dropout applies; eval runs the ``nn.BatchNorm*``
-modules as they are. Flattened features use torch's channel-major order, and
-the module names are the reference's (StandardCNN's fc is ``fc_out``, Skip's
+rows; over the ranks of the process group that
+:func:`.modules.set_process_group` gives it) and the reference's dropout
+applies; eval runs the ``nn.BatchNorm*`` modules as they are. Flattened
+features use torch's channel-major order, and the module names are the reference's (StandardCNN's fc is ``fc_out``, Skip's
 is ``linear``), so released checkpoints load unchanged.
 """
 
@@ -34,9 +35,10 @@ class _Stage(nn.Module):
         # the JAX package's default when the key is absent
         self.dropout_p = float(cfg.get("cnn_dropout", 0.2) or 0.0)
         self.generator = None
+        self.group = None  # the process group of train-mode batch statistics
 
     def _bn(self, bn, x, w):
-        return masked_batch_norm(x, bn, w) if self.training else bn(x)
+        return masked_batch_norm(x, bn, w, self.group) if self.training else bn(x)
 
     def _drop2d(self, x):
         return dropout2d(x, self.dropout_p, self.training, self.generator)

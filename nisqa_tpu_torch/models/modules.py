@@ -1,7 +1,7 @@
 """Shared building blocks: length masks, masked multi-head self-attention,
 the reference's 2x2 max-pool, the masked (packed-sequence) LSTM, and the
-train-mode pieces: the masked batch norm and dropout with an explicit
-generator.
+train-mode pieces: the masked batch norm (over the ranks of a process
+group when it is given one) and dropout with an explicit generator.
 
 Counterparts of ``nisqa_tpu/models/modules.py::length_mask``, ``mha``,
 ``max_pool2d``, ``lstm``, ``batchnorm`` (train mode), ``dropout`` and
@@ -24,13 +24,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
+
 
 def length_mask(n_wins, t: int):
     """(B,) lengths -> (B, T) bool validity mask."""
     return torch.arange(t, device=n_wins.device)[None, :] < n_wins[:, None]
 
 
-def masked_batch_norm(x, bn, w=None):
+def masked_batch_norm(x, bn, w=None, group=None):
     """Train-mode ``bn`` (an ``nn.BatchNorm1d`` / ``2d``) over x (N, C, ...)
     with batch statistics over the rows whose validity ``w`` (N,) is true.
 
@@ -43,15 +45,29 @@ def masked_batch_norm(x, bn, w=None):
     the call, as torch's own train-mode batch norm does. ``bn``'s weight,
     bias and running buffers are used as they are, so no state-dict key
     changes.
+
+    With a process ``group`` the statistics are those of the rows of every
+    rank: n and the weighted sum go through one all-reduce, the weighted
+    squared deviations from the global mean through a second, both
+    differentiable (:func:`..parallel.mesh.all_reduce_sum`). The running
+    statistics then update alike on every rank. A rank whose rows are all
+    invalid still takes part.
     """
     dims = [0] + list(range(2, x.dim()))
     wb = (torch.ones(x.shape[0], dtype=x.dtype, device=x.device) if w is None
           else w.to(x.dtype)).view(-1, *([1] * (x.dim() - 1)))
     n = wb.sum() * math.prod(x.shape[2:])
-    mean = (x * wb).sum(dims) / n
+    s = (x * wb).sum(dims)
+    if group is not None:
+        ns = all_reduce_sum(torch.cat([n.view(1), s]), group)
+        n, s = ns[0], ns[1:]
+    mean = s / n
     shape = [1, -1] + [1] * (x.dim() - 2)
     centred = x - mean.view(shape)
-    var = (wb * centred * centred).sum(dims) / n
+    sq = (wb * centred * centred).sum(dims)
+    if group is not None:
+        sq = all_reduce_sum(sq, group)
+    var = sq / n
     y = centred * torch.rsqrt(var + bn.eps).view(shape) * bn.weight.view(shape) + bn.bias.view(shape)
     with torch.no_grad():
         m = bn.momentum
@@ -85,6 +101,14 @@ def set_dropout_generator(model: nn.Module, generator):
     for m in model.modules():
         if hasattr(m, "generator"):
             m.generator = generator
+
+
+def set_process_group(model: nn.Module, group):
+    """Every module of ``model`` that applies train-mode batch norm takes
+    its statistics over the ranks of ``group`` (None: this process alone)."""
+    for m in model.modules():
+        if hasattr(m, "group"):
+            m.group = group
 
 
 def max_pool2d(x, pad_w: int = 0):

@@ -15,8 +15,10 @@ The module tree follows the reference's state-dict names (``cnn.model.*``,
 released ``.tar`` checkpoints load with ``strict=True`` and no key
 converter. Every framewise, time-dependency, alignment, fusion and pooling
 option is here. In train mode ``row_valid`` (B,) keeps rows out of the batch
-statistics, and every dropout draws from the generator that
-:meth:`NISQA.set_dropout_generator` gives the model.
+statistics, every dropout draws from the generator that
+:meth:`NISQA.set_dropout_generator` gives the model, and batch norm takes
+its statistics over the ranks of the group :meth:`NISQA.set_process_group`
+gives it.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch import nn
 
 from .align import Alignment, Fusion
 from .framewise import Framewise
-from .modules import set_dropout_generator
+from .modules import set_dropout_generator, set_process_group
 from .pooling import Pooling
 from .td import TimeDependency
 
@@ -61,6 +63,12 @@ class NISQA(nn.Module):
         """Every dropout of the model draws from ``generator`` (a
         ``torch.Generator`` on the model's device; None: the global one)."""
         set_dropout_generator(self, generator)
+
+    def set_process_group(self, group):
+        """Train-mode batch norm takes its statistics over the ranks of
+        ``group`` (a ``torch.distributed`` process group; None: this
+        process's rows alone)."""
+        set_process_group(self, group)
 
     def _trunk(self, x, n_wins, row_valid=None):
         h = self.time_dependency(self.cnn(x, n_wins, row_valid), n_wins)

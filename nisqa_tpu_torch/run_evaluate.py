@@ -12,6 +12,7 @@ The device is CUDA; set "tr_device" to "cpu" to run on the CPU.
 """
 
 from nisqa_tpu_torch.model import NisqaTorch
+from nisqa_tpu_torch.parallel.mesh import destroy_data_parallel
 
 if __name__ == "__main__":
     args = {
@@ -29,6 +30,9 @@ if __name__ == "__main__":
         "tr_device": None,
     }
 
-    nisqa = NisqaTorch(args)
-    nisqa.predict()
-    nisqa.evaluate(mapping="first_order", do_print=True, do_plot=True)
+    try:
+        nisqa = NisqaTorch(args)
+        nisqa.predict()
+        nisqa.evaluate(mapping="first_order", do_print=True, do_plot=True)
+    finally:
+        destroy_data_parallel()

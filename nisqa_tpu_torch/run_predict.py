@@ -7,7 +7,8 @@ Examples:
   python -m nisqa_tpu_torch.run_predict --mode predict_csv  --pretrained_model weights/nisqa.tar --csv_file f.csv --csv_deg column_name --data_dir dir --output_dir out/
 
 The device defaults to CUDA; ``--tr_device cpu`` is the only way to run on
-the CPU.
+the CPU. Under ``torchrun`` with ``tr_parallel`` in the checkpoint's args,
+each rank scores whole batches and rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import argparse
 
 from .model import NisqaTorch
+from .parallel.mesh import destroy_data_parallel
 
 
 def parse_args(argv=None) -> dict:
@@ -65,4 +67,7 @@ def main(argv=None) -> NisqaTorch:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        destroy_data_parallel()

@@ -5,7 +5,9 @@ Example:
   python -m nisqa_tpu_torch.run_train --yaml nisqa_tpu/config/train_nisqa_cnn_sa_ap.yaml
 
 The device defaults to CUDA (``tr_device`` in the YAML, or ``--tr_device``);
-``cpu`` is the only way to train on the CPU.
+``cpu`` is the only way to train on the CPU. With ``tr_parallel: true`` (the
+shipped YAMLs set it), ``torchrun`` trains over N cards, one process each:
+  torchrun --standalone --nproc_per_node N -m nisqa_tpu_torch.run_train --yaml F
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import argparse
 
 from .compat import yaml_lite
 from .model import NisqaTorch
+from .parallel.mesh import destroy_data_parallel
 
 
 def parse_args(argv=None) -> dict:
@@ -36,4 +39,7 @@ def main(argv=None) -> NisqaTorch:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        destroy_data_parallel()

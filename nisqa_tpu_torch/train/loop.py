@@ -1,4 +1,5 @@
-"""Training loops (MOS and multidimensional) on one device.
+"""Training loops (MOS and multidimensional), on one device or over the
+ranks of a process group.
 
 Counterpart of ``nisqa_tpu/train/loop.py``: Adam, reduce-on-plateau
 (relative threshold 0.003), early stopping and the optional bias loss; the
@@ -27,6 +28,19 @@ takes its segments from one of two fills:
 Then both run the train-mode forward (masked batch norm, dropout), the loss,
 backward and ``torch.optim.Adam``.
 
+Data parallel (the runner's ``dp``, under ``torchrun``): a (batch, rate)
+group of n files is padded to the next multiple of the rank count W by
+repeating its first file, with NaN targets, bias coefficients [0, 1, 0, 0]
+and ``row_valid`` false, and each rank fills or gathers only its slice
+(:func:`..parallel.mesh.shard_rows`). Batch norm takes its statistics over
+the valid rows of every rank, each rank's loss divides its squared errors
+by the global count of valid targets, so the ranks' losses sum to the
+global loss, and one all-reduce sums the gradients before Adam: the
+weights, Adam's state and the BN buffers stay equal on every rank. The
+epoch's readback is one all-reduce of the step losses and the train-mode
+predictions. Every rank builds the whole device corpus and shuffles alike;
+dropout draws from ``(seed, epoch, rank)`` on ranks other than 0.
+
 Losses and predictions stay on the device until the epoch ends: a readback
 per step would make the host wait for the device. Deliberate differences
 from the JAX package: the shuffle order and the dropout masks come from
@@ -34,8 +48,8 @@ numpy and torch generators seeded from ``(seed, epoch)``, which cannot
 reproduce JAX's PRNG; the full train state for ``tr_resume`` is a ``.pt``
 file, not flax's ``.msgpack``; the epoch loss weighs the two sub-steps of a
 group split by partial residency by their rows (one term of the mean, where
-``nisqa_tpu`` counts two); and there is no data parallelism
-(``tr_parallel``): it trains on one device.
+``nisqa_tpu`` counts two); and data parallelism runs one process per card
+(``torchrun``), not a mesh in one process.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from ..data.front_end import frame_geometry, mel_fn, seg_fn
 from ..data.pipeline import _Slot, matmul_precision
 from ..eval.report import eval_results
 from ..ops.dft_mel import fused_dft_mel
+from ..parallel.mesh import all_reduce_grads, barrier, shard_rows, sum_rows
 from .bias_loss import BiasLoss
 from .checkpoint import load_train_state, save_train_state
 from .early_stop import EarlyStopper, EarlyStopperDim
@@ -73,34 +88,41 @@ def _n_of(e):
     return e[1] if e[0] in ("native", "native_f32", "meta") else len(e[1])
 
 
-def nan_mse(pred, target):
-    """Mean squared error over the non-NaN targets."""
+def nan_mse(pred, target, count=None):
+    """Mean squared error over the non-NaN targets. ``count``: the number of
+    valid targets to divide by, when ``target`` holds one rank's share of a
+    batch (None: the non-NaN targets here, at least 1)."""
     ok = ~torch.isnan(target)
     err = torch.where(ok, pred - target, 0.0)
-    return (err * err).sum() / ok.sum().clamp(min=1)
+    return (err * err).sum() / (ok.sum().clamp(min=1) if count is None else count)
 
 
-def train_loss(y_hat, y, bias_b, loss_weight: float = 0.0):
+def train_loss(y_hat, y, bias_b, loss_weight: float = 0.0, counts=None):
     """Sum over the K targets of the NaN-masked MSE of the bias-mapped
     prediction ``b0 + b1 y + b2 y^2 + b3 y^3`` (``bias_b`` (B, K, 4)), plus
-    ``loss_weight`` times the MSE of the raw prediction."""
+    ``loss_weight`` times the MSE of the raw prediction. ``counts`` (K,):
+    each target's valid count over the whole batch, when the rows are one
+    rank's share of it (None: this batch's own)."""
     mapped = (bias_b[..., 0] + bias_b[..., 1] * y_hat + bias_b[..., 2] * y_hat ** 2
               + bias_b[..., 3] * y_hat ** 3)
-    return sum(nan_mse(mapped[:, k], y[:, k]) + loss_weight * nan_mse(y_hat[:, k], y[:, k])
-               for k in range(y.shape[1]))
+    c = [None] * y.shape[1] if counts is None else counts
+    return sum(nan_mse(mapped[:, k], y[:, k], c[k])
+               + loss_weight * nan_mse(y_hat[:, k], y[:, k], c[k]) for k in range(y.shape[1]))
 
 
-def epoch_seed(seed: int, epoch: int) -> int:
+def epoch_seed(seed: int, epoch: int, rank: int = 0) -> int:
     """The seed of an epoch's shuffle and dropout masks: a function of (seed,
-    epoch) alone, so a resumed run draws what an uninterrupted one does."""
-    return int(np.random.SeedSequence([int(seed), int(epoch)]).generate_state(1)[0])
+    epoch) alone, so a resumed run draws what an uninterrupted one does;
+    the dropout of ranks other than 0 takes the rank too."""
+    entropy = [int(seed), int(epoch)] + ([int(rank)] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
 class TrainEngine:
     """Train steps for the runner's model on its device, from the host fill
-    or from the device-resident corpus. ``dft_mel`` is the front-end's
-    DFT->mel step (the CUDA kernel for device tensors, its twin for CPU
-    tensors)."""
+    or from the device-resident corpus, over the ranks of the runner's
+    process group when it has one. ``dft_mel`` is the front-end's DFT->mel
+    step (the CUDA kernel for device tensors, its twin for CPU tensors)."""
 
     def __init__(self, runner, loss_weight: float = 0.0):
         args = runner.args
@@ -116,9 +138,11 @@ class TrainEngine:
         self.opt = torch.optim.Adam(self.model.parameters(), lr=float(args["tr_lr"]))
         self.generator = torch.Generator(device=self.device)
         self.model.set_dropout_generator(self.generator)
+        self.dp = runner.dp
+        self.model.set_process_group(self.dp.group if self.dp is not None else None)
         self._rings = {}
         self.steps = 0  # train steps run (one per batch and sample rate, two for a split group)
-        # per epoch: steps, files, wall_s, the loss terms (and build_s, val_s)
+        # per epoch: steps, files, wall_s, the loss terms, the loss (and build_s, val_s)
         self.history = []
         # the device-resident corpus: per sample rate, mel-dB rows of the
         # files that fit tr_device_cache_mb (None means 1,024 MB; an explicit
@@ -132,9 +156,6 @@ class TrainEngine:
         self._scans = {}  # under tr_ds_to_memory: paths -> transport entries, kept across epochs
         self._corpus, self._corpus_key = None, None
         self.build_s = None  # wall time of the corpus build in the current epoch, if any
-        if args.get("tr_parallel"):
-            print("nisqa_tpu_torch: tr_parallel: data parallelism is not ported; "
-                  "training runs on one device", file=sys.stderr)
 
     # -- host side -------------------------------------------------------------
 
@@ -222,17 +243,19 @@ class TrainEngine:
                 n_keep = budget // row_bytes // CHUNK * CHUNK
                 need_mb = -(-(n_rows * row_bytes) // (1 << 20))
                 if n_keep <= 0:
-                    print(f"nisqa_tpu_torch: training corpus mels (sr {sr}) exceed "
-                          f"tr_device_cache_mb ({self.cache_mb:.0f} MB) and not even a "
-                          f"{CHUNK}-row head fits: 0/{len(gidx)} rows device-resident, every "
-                          f"epoch re-decodes and re-uploads. Full residency needs "
-                          f"tr_device_cache_mb >= {need_mb}.", file=sys.stderr)
+                    self.runner.log(
+                        f"nisqa_tpu_torch: training corpus mels (sr {sr}) exceed "
+                        f"tr_device_cache_mb ({self.cache_mb:.0f} MB) and not even a "
+                        f"{CHUNK}-row head fits: 0/{len(gidx)} rows device-resident, every "
+                        f"epoch re-decodes and re-uploads. Full residency needs "
+                        f"tr_device_cache_mb >= {need_mb}.", file=sys.stderr)
                     continue
                 order = sorted(range(len(gidx)), key=lambda j: (-nw[j], j))
-                print(f"nisqa_tpu_torch: training corpus mels (sr {sr}) exceed "
-                      f"tr_device_cache_mb ({self.cache_mb:.0f} MB): {n_keep}/{len(gidx)} rows "
-                      f"(longest files) stay device-resident, the tail host-fills per epoch. "
-                      f"Full residency needs tr_device_cache_mb >= {need_mb}.", file=sys.stderr)
+                self.runner.log(
+                    f"nisqa_tpu_torch: training corpus mels (sr {sr}) exceed "
+                    f"tr_device_cache_mb ({self.cache_mb:.0f} MB): {n_keep}/{len(gidx)} rows "
+                    f"(longest files) stay device-resident, the tail host-fills per epoch. "
+                    f"Full residency needs tr_device_cache_mb >= {need_mb}.", file=sys.stderr)
                 gidx = [gidx[o] for o in order[:n_keep]]
                 n_rows = n_keep
             mel, n, all_i16 = self._mel_corpus(entries, paths, gidx, sr, bucket, n_rows,
@@ -290,9 +313,17 @@ class TrainEngine:
 
     # -- one step ----------------------------------------------------------------
 
-    def _batch(self, idx, paths, paths_ref, entries, entries_ref, bs, kind):
+    def _bucket(self, idx, entries, entries_ref):
+        """The T bucket of the longest file (a pair's longer end) of ``idx``."""
+        ms, sr = self.ms, entries[idx[0]][2]
+        ends = [entries] + ([entries_ref] if entries_ref is not None else [])
+        return ms.bucket_for(max(ms.n_wins(ms.n_frames(_n_of(e[i]), sr))
+                                 for e in ends for i in idx))
+
+    def _batch(self, idx, paths, paths_ref, entries, entries_ref, bs, kind, bucket=None):
         """Fill, upload and front-end one group of files (one sample rate):
-        returns [(segs, n_wins)] per end on the device. The serving engine's
+        returns [(segs, n_wins)] per end on the device, at ``bucket`` (None:
+        the bucket of ``idx``'s longest file). The serving engine's
         ``_make_batch`` fills the slot (native decode, a file it misses
         decoded in Python) and its ``_upload`` copies it; the rows past the
         group are dropped."""
@@ -306,8 +337,8 @@ class TrainEngine:
                     raise RuntimeError(
                         f"host audio for device-resident row {end_paths[i]} was released -- "
                         "this row should be served from the mel corpus")
-        bucket = ms.bucket_for(max(ms.n_wins(ms.n_frames(_n_of(e[i]), sr))
-                                   for _, e in ends for i in idx))
+        if bucket is None:
+            bucket = self._bucket(idx, entries, entries_ref)
         buf_len = frame_geometry(ms, sr, bucket)[4]
         blocks = []
         for end, (end_paths, end_entries) in enumerate(ends):
@@ -332,30 +363,62 @@ class TrainEngine:
             return [seg_fn(self.ms, c["sr"], c["bucket"], c[m].index_select(0, ids),
                            c[k].index_select(0, ids)) for m, k in ends]
 
-    def _loss(self, segs, y, bias_b):
-        """Train-mode forward and loss: (loss, predictions (B, K))."""
+    def _loss(self, segs, y, bias_b, row_valid=None, counts=None):
+        """Train-mode forward and loss: (loss, predictions (B, K)).
+        ``row_valid`` (B,) keeps padding rows out of the batch statistics;
+        ``counts`` as :func:`train_loss` takes them."""
         if self.model.double_ended:
-            y_hat = self.model.forward_ends(*segs[0], *segs[1])
+            y_hat = self.model.forward_ends(*segs[0], *segs[1], row_valid)
         else:
-            y_hat = self.model(*segs[0])
-        return train_loss(y_hat, y, bias_b, self.loss_weight), y_hat
+            y_hat = self.model(*segs[0], row_valid)
+        return train_loss(y_hat, y, bias_b, self.loss_weight, counts), y_hat
 
-    def _targets(self, idx, y_all, bias_losses):
-        """Targets (B, K) and bias coefficients (B, K, 4) of files ``idx`` on the device."""
+    def _targets(self, idx, y_all, bias_losses, n_valid=None):
+        """Targets (B, K) and bias coefficients (B, K, 4) of files ``idx`` on
+        the device; rows from ``n_valid`` on pad a sharded group: NaN
+        targets, coefficients [0, 1, 0, 0]."""
+        y = y_all[idx]
         bias_b = np.stack([bl.coeffs(idx) for bl in bias_losses], axis=1)
-        return self._to_device(y_all[idx]), self._to_device(bias_b)
+        if n_valid is not None:
+            y[n_valid:] = np.nan
+            bias_b[n_valid:] = (0.0, 1.0, 0.0, 0.0)
+        return self._to_device(y), self._to_device(bias_b)
 
-    def _run_group(self, segs, idx, y_all, bias_losses):
+    def _run_group(self, segs, idx, y_all, bias_losses, n_valid=None, counts=None):
         """One train step on the segments of files ``idx``, from either fill:
-        forward, loss, backward, Adam. Returns (loss, predictions) on the device."""
-        y, bias_b = self._targets(idx, y_all, bias_losses)
+        forward, loss, backward, Adam. Under a process group ``idx`` is the
+        rank's share of a padded group whose first ``n_valid`` rows are
+        real, ``counts`` (K,) the group's valid targets, and the gradients
+        are summed over the ranks before Adam. Returns (loss, predictions)
+        on the device."""
+        y, bias_b = self._targets(idx, y_all, bias_losses, n_valid)
+        row_valid = None
+        if self.dp is not None:
+            row_valid = self._to_device(np.arange(len(idx)) < n_valid)
+            counts = self._to_device(counts)
         with matmul_precision(self.precision):
-            loss, y_hat = self._loss(segs, y, bias_b)
+            loss, y_hat = self._loss(segs, y, bias_b, row_valid, counts)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
+            if self.dp is not None:
+                all_reduce_grads(self.model.parameters(), self.dp.group)
             self.opt.step()
         self.steps += 1
         return loss.detach(), y_hat.detach()
+
+    def _step(self, g, y_all, bias_losses, segs_of):
+        """One train step on the (batch, rate) group of files ``g``, whose
+        segments ``segs_of(files)`` gives. Under a process group the rank
+        runs its share of ``g`` padded by :func:`shard_rows`. Returns (g,
+        the files of this rank's real rows, loss, their predictions)."""
+        if self.dp is None:
+            return (g, g, *self._run_group(segs_of(g), g, y_all, bias_losses))
+        B, lo, hi = shard_rows(len(g), self.dp.size, self.dp.rank)
+        rows = (g + g[:1] * (B - len(g)))[lo:hi]
+        n_valid = max(0, min(hi, len(g)) - lo)
+        counts = np.maximum((~np.isnan(y_all[g])).sum(axis=0), 1).astype(np.float32)
+        loss, y_hat = self._run_group(segs_of(rows), rows, y_all, bias_losses, n_valid, counts)
+        return g, rows[:n_valid], loss, y_hat[:n_valid]
 
     # -- one epoch -----------------------------------------------------------------
 
@@ -377,7 +440,7 @@ class TrainEngine:
         order = np.arange(n_files)
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(epoch_seed(self.seed, epoch, self.dp.rank if self.dp else 0))
         entries = self._entries(paths)
         entries_ref = self._entries(paths_ref) if paths_ref is not None else None
         self.build_s = None
@@ -391,8 +454,11 @@ class TrainEngine:
             group["lr"] = lr
         self.model.train()
 
-        terms = []  # per (batch, sample rate): [(file indices, loss, predictions)] of its steps
+        # per (batch, sample rate): [(file indices, this rank's files, loss,
+        # their predictions)] of its steps
+        terms = []
         n_batches = -(-n_files // batch_size)
+        log = self.runner.log
         for b, start in enumerate(range(0, n_files, batch_size)):
             by_sr = {}
             for i in order[start : start + batch_size]:
@@ -404,38 +470,53 @@ class TrainEngine:
                 filled = [i for i in g if i not in local]
                 term = []
                 if gathered:
-                    term.append((gathered, *self._run_group(self._gather(gathered, c), gathered,
-                                                            y_all, bias_losses)))
+                    term.append(self._step(gathered, y_all, bias_losses,
+                                           lambda rows, c=c: self._gather(rows, c)))
                 if filled:
                     kind = ("i16" if paths_ref is None
                             and all(entries[i][0] == "native" for i in filled) else "f32")
-                    segs = self._batch(filled, paths, paths_ref, entries, entries_ref,
-                                       batch_size, kind)
-                    term.append((filled, *self._run_group(segs, filled, y_all, bias_losses)))
+                    # every rank's share takes the whole group's bucket
+                    bucket = self._bucket(filled, entries, entries_ref)
+                    term.append(self._step(filled, y_all, bias_losses, lambda rows: self._batch(
+                        rows, paths, paths_ref, entries, entries_ref, batch_size, kind, bucket)))
                 terms.append(term)
             if verbose == 2:
-                print(f"\r{100 * (b + 1) / n_batches:3.0f}%, {b + 1}/{n_batches}, "
-                      f"{time.perf_counter() - t0:.0f}s", end="", file=sys.stderr, flush=True)
+                log(f"\r{100 * (b + 1) / n_batches:3.0f}%, {b + 1}/{n_batches}, "
+                    f"{time.perf_counter() - t0:.0f}s", end="", file=sys.stderr, flush=True)
         if verbose == 2:
-            print(file=sys.stderr, flush=True)
+            log(file=sys.stderr, flush=True)
 
         # the epoch's one readback
         steps = [s for term in terms for s in term]
-        losses = iter(torch.stack([loss for _, loss, _ in steps]).cpu().tolist())
-        y_hats = torch.cat([y for _, _, y in steps]).float().cpu().numpy()
+        own = [i for _, files, _, _ in steps for i in files]
+        losses = torch.stack([loss for _, _, loss, _ in steps])
+        y_hats = torch.cat([y for _, _, _, y in steps]).float()
         y_hat_all = np.zeros((n_files, n_targets), dtype=np.float32)
-        pos = 0
-        for g, _, _ in steps:
-            y_hat_all[g] = y_hats[pos : pos + len(g)]
-            pos += len(g)
-        rows_losses = [[(len(g), next(losses)) for g, _, _ in term] for term in terms]
+        if self.dp is None:
+            losses = losses.cpu().tolist()
+            y_hat_all[own] = y_hats.cpu().numpy()
+        else:
+            # one all-reduce: each rank's predictions at its files' rows, and
+            # each step's loss share in column 0 of a row after them (the
+            # ranks' shares sum to the step's loss)
+            dev = y_hats.device
+            rows = torch.tensor(own + list(range(n_files, n_files + len(steps))), device=dev)
+            loss_rows = torch.zeros((len(steps), n_targets), device=dev)
+            loss_rows[:, 0] = losses
+            out = sum_rows(rows, torch.cat([y_hats, loss_rows]), n_files + len(steps),
+                           self.dp.group).cpu()
+            y_hat_all[:] = out[:n_files].numpy()
+            losses = out[n_files:, 0].tolist()
+        losses = iter(losses)
+        rows_losses = [[(len(g), next(losses)) for g, _, _, _ in term] for term in terms]
         term_losses = [parts[0][1] if len(parts) == 1
                        else sum(n * loss for n, loss in parts) / sum(n for n, _ in parts)
                        for parts in rows_losses]
+        loss = sum(term_losses) / max(len(term_losses), 1)
         self.history.append({"epoch": epoch, "steps": len(steps), "files": n_files,
                              "wall_s": time.perf_counter() - t0, "terms": rows_losses,
-                             "build_s": self.build_s})
-        return sum(term_losses) / max(len(term_losses), 1), y_hat_all
+                             "loss": loss, "build_s": self.build_s})
+        return loss, y_hat_all
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +528,8 @@ class ResultsWriter:
     """The per-epoch results CSV (every value stringified, in the JAX
     package's column order) and the checkpoints of ``tr_checkpoint``:
     ``every_epoch`` (``<runname>__ep_<NNN>``) or ``best_only``
-    (``<runname>``, when the early stopper flags the epoch best)."""
+    (``<runname>``, when the early stopper flags the epoch best). Rank 0
+    writes; under a process group every rank waits for the save."""
 
     def __init__(self, runner, runname):
         self.runner = runner
@@ -461,6 +543,18 @@ class ResultsWriter:
         if ckpt_mode not in ("every_epoch", "best_only"):
             raise ValueError("selected tr_checkpoint option not available")
         base = self.runname if ckpt_mode == "best_only" else f"{self.runname}__ep_{epoch + 1:03d}"
+        if runner.is_main:
+            self._write(base, epoch, loss, ep_runtime, r, bias_b, optimizer,
+                        ckpt_mode == "every_epoch" or best, sched, stopper)
+        if runner.dp is not None:
+            barrier(runner.dp.group)
+
+    def _write(self, base, epoch, loss, ep_runtime, r, bias_b, optimizer, checkpoint, sched,
+               stopper):
+        """The results CSV with this epoch's row and, if ``checkpoint``, the
+        epoch's ``.tar`` and ``.pt``."""
+        runner = self.runner
+        args = runner.args
         run_dir = os.path.join(args["output_dir"], self.runname)
         os.makedirs(run_dir, exist_ok=True)
 
@@ -480,7 +574,7 @@ class ResultsWriter:
         table = Table({c: np.array([row.get(c) for row in self.rows], dtype=object) for c in cols})
         table.to_csv(os.path.join(run_dir, self.runname + "__results.csv"))
 
-        if ckpt_mode == "every_epoch" or best:
+        if checkpoint:
             save_train_state(os.path.join(run_dir, base), runner.model, optimizer, args, epoch,
                              bias_b, results,
                              {"sched": sched.state_dict(), "stopper": stopper.state_dict()})
@@ -511,7 +605,7 @@ def _maybe_resume(runner, engine, bias_losses, sched, stopper):
     sched.load_state_dict(state["loop_state"]["sched"])
     stopper.load_state_dict(state["loop_state"]["stopper"])
     start = int(state["epoch"])
-    print(f"--> resumed from {base} at epoch {start}")
+    runner.log(f"--> resumed from {base} at epoch {start}")
     return start
 
 
@@ -523,7 +617,7 @@ def _bias_losses(runner, k):
             anchor_db=args.get("tr_bias_anchor_db"),
             mapping=args.get("tr_bias_mapping"),
             min_r=args.get("tr_bias_min_r"),
-            do_print=(args.get("tr_verbose", 0) > 0),
+            do_print=(args.get("tr_verbose", 0) > 0 and runner.is_main),
         )
         for _ in range(k)
     ]
@@ -554,8 +648,11 @@ def train_mos(runner):
     args = runner.args
     engine, sched, stopper, bias_losses, writer, start_epoch = _setup(runner, EarlyStopper, 1)
     verbose = args.get("tr_verbose", 0)
+    log = runner.log
+    # the metrics' own prints: rank 0 only
+    shown = verbose > 0 and runner.is_main
 
-    print("--> start training")
+    log("--> start training")
     for epoch in range(start_epoch, args["tr_epochs"]):
         tic = time.time()
         loss, y_hat = engine.run_epoch(runner.ds_train, bias_losses, sched.lr, epoch,
@@ -564,21 +661,21 @@ def train_mos(runner):
         bias_losses[0].update_bias(y_train, y_hat[:, 0])
 
         if verbose > 0:
-            print("\n<---- Training ---->")
+            log("\n<---- Training ---->")
         runner.ds_train.df["mos_pred"] = y_hat[:, 0].astype(float)
         _, r_train = eval_results(
             runner.ds_train.df, dcon=runner.ds_train.df_con,
             target_mos=args["csv_mos_train"], target_ci=args["csv_mos_train"] + "_ci",
-            pred="mos_pred", mapping="first_order", do_print=(verbose > 0),
+            pred="mos_pred", mapping="first_order", do_print=shown,
         )
 
         if verbose > 0:
-            print("<---- Validation ---->")
+            log("<---- Validation ---->")
         _validate(runner, engine)
         _, r_val = eval_results(
             runner.ds_val.df, dcon=runner.ds_val.df_con,
             target_mos=args["csv_mos_val"], target_ci=args["csv_mos_val"] + "_ci",
-            pred="mos_pred", mapping="first_order", do_print=(verbose > 0),
+            pred="mos_pred", mapping="first_order", do_print=shown,
         )
 
         r = {
@@ -590,7 +687,7 @@ def train_mos(runner):
         sched.step(loss)
         stop = stopper.step(r)
         ep_runtime = time.time() - tic
-        print(
+        log(
             f"ep {epoch + 1} sec {ep_runtime:0.0f} es {stopper.cnt} lr {lr_now:0.0e} "
             f"loss {loss:0.4f} // r_p_tr {r['train_r_p_mean_file']:0.2f} "
             f"rmse_map_tr {r['train_rmse_map_mean_file']:0.2f} // "
@@ -600,10 +697,10 @@ def train_mos(runner):
         writer.save(epoch, loss, ep_runtime, r, bias_losses[0].b, engine.opt, stopper.best, sched,
                     stopper)
         if stop:
-            print(f"--> Early stopping. best_r_p {stopper.best_r_p:0.2f} "
+            log(f"--> Early stopping. best_r_p {stopper.best_r_p:0.2f} "
                   f"best_rmse {stopper.best_rmse:0.2f}")
             return
-    print(f"--> Training done. best_r_p {stopper.best_r_p:0.2f} "
+    log(f"--> Training done. best_r_p {stopper.best_r_p:0.2f} "
           f"best_rmse_map {stopper.best_rmse:0.2f}")
 
 
@@ -618,8 +715,11 @@ def train_dim(runner):
     args = runner.args
     engine, sched, stopper, bias_losses, writer, start_epoch = _setup(runner, EarlyStopperDim, 5)
     verbose = args.get("tr_verbose", 0)
+    log = runner.log
+    # the metrics' own prints: rank 0 only
+    shown = verbose > 0 and runner.is_main
 
-    print("--> start training")
+    log("--> start training")
     for epoch in range(start_epoch, args["tr_epochs"]):
         tic = time.time()
         loss, y_hat = engine.run_epoch(runner.ds_train, bias_losses, sched.lr, epoch,
@@ -629,32 +729,32 @@ def train_dim(runner):
             bias_losses[k].update_bias(y_train[:, k], y_hat[:, k])
 
         if verbose > 0:
-            print("\n<---- Training ---->")
+            log("\n<---- Training ---->")
         runner.ds_train.write_predictions(y_hat)
         r_train = {}
         for t in _DIM:
             if verbose > 0:
-                print(f"--> {t.upper()}:")
+                log(f"--> {t.upper()}:")
             _, rt = eval_results(
                 runner.ds_train.df, dcon=runner.ds_train.df_con, target_mos=t,
                 target_ci=f"{t}_ci", pred=f"{t}_pred", mapping="first_order",
-                do_print=(verbose > 0),
+                do_print=shown,
             )
             suffix = "" if t == "mos" else f"_{t}"
             r_train[f"train_r_p_mean_file{suffix}"] = rt["r_p_mean_file"]
             r_train[f"train_rmse_map_mean_file{suffix}"] = rt["rmse_map_mean_file"]
 
         if verbose > 0:
-            print("<---- Validation ---->")
+            log("<---- Validation ---->")
         _validate(runner, engine)
         r_val = {}
         for t in _DIM:
             if verbose > 0:
-                print(f"--> {t.upper()}:")
+                log(f"--> {t.upper()}:")
             _, rv = eval_results(
                 runner.ds_val.df, dcon=runner.ds_val.df_con, target_mos=t,
                 target_ci=f"{t}_ci", pred=f"{t}_pred", mapping="first_order",
-                do_print=(verbose > 0),
+                do_print=shown,
             )
             suffix = "" if t == "mos" else f"_{t}"
             r_val.update({f"{k}{suffix}": v for k, v in rv.items()})
@@ -665,7 +765,7 @@ def train_dim(runner):
         stop = stopper.step(r)
         ep_runtime = time.time() - tic
         r_dim_mean = np.mean([r[f"r_p_mean_file{'' if t == 'mos' else '_' + t}"] for t in _DIM])
-        print(
+        log(
             f"ep {epoch + 1} sec {ep_runtime:0.0f} es {stopper.cnt} lr {lr_now:0.0e} "
             f"loss {loss:0.4f} // r_p_tr {r['train_r_p_mean_file']:0.2f} "
             f"rmse_map_tr {r['train_rmse_map_mean_file']:0.2f} // "
@@ -676,8 +776,8 @@ def train_dim(runner):
         writer.save(epoch, loss, ep_runtime, r, np.stack([bl.b for bl in bias_losses], axis=1),
                     engine.opt, stopper.best, sched, stopper)
         if stop:
-            print(f"--> Early stopping. best_r_p {stopper.best_r_p_mos:0.2f} "
+            log(f"--> Early stopping. best_r_p {stopper.best_r_p_mos:0.2f} "
                   f"best_rmse {stopper.best_rmse_mos:0.2f}")
             return
-    print(f"--> Training done. best_r_p {stopper.best_r_p_mos:0.2f} "
+    log(f"--> Training done. best_r_p {stopper.best_r_p_mos:0.2f} "
           f"best_rmse {stopper.best_rmse_mos:0.2f}")

@@ -184,6 +184,7 @@ def test_port_import_leaves_jax_unloaded():
         "          ('jax', 'jaxlib', 'pandas', 'yaml', 'nisqa_tpu')]\n"
         "assert not loaded, loaded\n"
         "assert 'nisqa_tpu_torch.data.pipeline' in sys.modules\n"
+        "assert 'nisqa_tpu_torch.parallel.mesh' in sys.modules\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        env={**os.environ, "PYTHONPATH": REPO}, timeout=300)

@@ -223,8 +223,9 @@ def test_split_group_is_one_term_weighted_by_rows(corpus):
 
 
 def test_tr_ds_to_memory_is_ported(corpus, capfd):
-    """Only tr_parallel still prints a note."""
-    port_loop.TrainEngine(make_runner(corpus, tr_ds_to_memory=True, tr_parallel=True))
+    """No note for tr_ds_to_memory, nor (ported since) for tr_parallel in
+    one process, which trains on its one device."""
+    engine = port_loop.TrainEngine(make_runner(corpus, tr_ds_to_memory=True, tr_parallel=True))
     err = capfd.readouterr().err
-    assert "tr_parallel: data parallelism is not ported" in err
-    assert "tr_ds_to_memory" not in err
+    assert engine.dp is None and engine.to_memory
+    assert "not ported" not in err and "tr_ds_to_memory" not in err and "tr_parallel" not in err

@@ -143,6 +143,7 @@ def test_results_csv_matches_pandas(tmp_path):
 
     class Runner:
         runinfos = {"ds_train_len": 8, "ds_val_len": 4}
+        dp, is_main = None, True  # one process, which writes
 
     runner = Runner()
     runner.args = args

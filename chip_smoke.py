@@ -106,9 +106,22 @@ never prints its last line):
      validation predictions) of W = 1, parameters and BN buffers identical
      on both ranks. Each rank's wall time and a train step's collectives
      timed alone; the kernel at a W = 2 fill step's shape against its twin;
-  13. imports: nothing of jax or ``nisqa_tpu`` was loaded, and a fresh import
-     of every port module loads no jax, pandas, yaml, tqdm, matplotlib or
-     ``nisqa_tpu``.
+  13. imports (run last, after phase 14): nothing of jax or ``nisqa_tpu``
+     was loaded, and a fresh import of every port module, the tools
+     (``nisqa_tpu_torch.tools.*``) included, loads no jax, pandas, yaml,
+     tqdm, matplotlib or ``nisqa_tpu``;
+  14. tools: each measurement tool's ``main`` (``nisqa_tpu_torch.tools``)
+     on the card at a reduced size: ``bench`` over 96 files of its corpus
+     with 3 fetched, 2 fetch-free and 2 blocks of 4 async passes,
+     ``bench_tts`` over 4 files, ``bench_de`` over 32 pairs with the same
+     passes, ``bench_train`` over 32 files for 2 epochs; each prints its
+     JSON record on a line of its own. Finite fields, MFU in (0, 100], one
+     kernel launch per cold batch and end and none in a cached pass, the
+     cached passes within 1e-5 of the cold one (NISQA_DE at the default
+     precision: 1e-2), ``bench_train``'s 2 launches (one build chunk, one
+     cold validation batch); ``bench``'s front-end FLOPs at its largest
+     batch equal phase 3's count of the DFT's products at that shape, where
+     the kernel is held against its twin, plus the dense mel product.
 
 The last two lines are a JSON record of the kernel and
 ``{"ok": true, "device": {...}}``.
@@ -133,15 +146,10 @@ import wave
 import numpy as np
 import torch
 
+# the released models' front-ends: the yaml geometry and the NISQA-TTS checkpoint's
+from nisqa_tpu_torch.tools.corpus import TTS_GEOMETRY, YAML_GEOMETRY, golden_tar, load_golden
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-# the released model's front-end (nisqa_tpu/config/train_nisqa_cnn_sa_ap.yaml)
-YAML_GEOMETRY = {
-    "ms_sr": None, "ms_fmax": 20000, "ms_n_fft": 4096, "ms_hop_length": 0.01,
-    "ms_win_length": 0.02, "ms_n_mels": 48, "ms_seg_length": 15,
-    "ms_seg_hop_length": 4, "ms_max_segments": 1300, "ms_channel": None,
-}
-# the released NISQA-TTS checkpoint's front-end (nisqa_tts.tar args; tools/bench_tts.py)
-TTS_GEOMETRY = {**YAML_GEOMETRY, "ms_fmax": 8000, "ms_seg_hop_length": 1, "ms_max_segments": 6000}
 BATCH = 32
 TTS_BATCH = 8
 # the trained double-ended weights: the shipped DE architecture at the yaml geometry
@@ -154,7 +162,8 @@ DEFAULT_PASS_BOUND = 1e-2             # the same at the default precision (TF32,
 WARM_REPS = 5                         # timed warm passes per engine
 SERVE_BOUND = 1e-5                    # every serving regime vs the cold pass, absolute
 TRAIN_LOSS_BOUND, TRAIN_GRAD_BOUND = 1e-4, 1e-3  # train step, kernel vs twin front-end
-BF16_PEAK, TF32_PEAK, HBM_RATE = 989e12, 495e12, 3.35e12  # H100 SXM data sheet, dense
+# H100 SXM data sheet, dense: tensor cores in bf16 and TF32, float32 outside them, HBM
+BF16_PEAK, TF32_PEAK, FP32_PEAK, HBM_RATE = 989e12, 495e12, 67e12, 3.35e12
 DP_TIMEOUT = 300                      # s, one torchrun launch of phase 12
 
 
@@ -210,8 +219,14 @@ def kernel_case(geometry: str, g_ms, sr: int, n: int, modes, reps: int, rng, car
     m = c["fb_t"].shape[1]
     frames = np.clip(np.round(rng.standard_normal((n, span)) * 3000), -32768, 32767)
     frames = torch.from_numpy(frames.astype(np.float32)).cuda()
-    flop = 4.0 * n * span * k  # the DFT's re and im products, as counted for both
-    n_tiles = len(prepare_consts(c["w_re"], c["w_im"], c["fb_t"], True)["tiles"])
+    # the work the function needs: the DFT's re and im products over the K
+    # kept bins, and the mel step over each 64-bin tile's band [m_lo, m_hi)
+    # only (fb is zero elsewhere; tiles with an empty band have none)
+    tiles = prepare_consts(c["w_re"], c["w_im"], c["fb_t"], True)["tiles"].cpu()
+    n_tiles = len(tiles)
+    dft_flop = 4 * n * span * k
+    mel_flop = 2 * n * 64 * int((tiles[:, 2] - tiles[:, 1]).sum())
+    flop = dft_flop + mel_flop
     iters = 1 if n >= 10_000 else 20
     results = []
     for mode in modes:
@@ -232,16 +247,18 @@ def kernel_case(geometry: str, g_ms, sr: int, n: int, modes, reps: int, rng, car
                 k_ms.append(event_ms(lambda: fused_dft_mel(*args, bf16=bf16), iters))
                 t_ms.append(event_ms(lambda: dft_mel_reference(*args, bf16=bf16), iters))
         kernel_ms, twin_ms = float(np.median(k_ms)), float(np.median(t_ms))
-        # least time for the same work: the products on the tensor cores
-        # (3 TF32 products per exact one), or each input read and the
-        # output written once at the HBM rate, whichever is longer
-        ops_s = flop / BF16_PEAK if bf16 else 3 * flop / TF32_PEAK
+        # least time for the same work: the DFT's products on the tensor
+        # cores (3 TF32 products per exact one) and the float32 mel step at
+        # the float32 rate, or each input read and the output written once
+        # at the HBM rate, whichever is longer
+        ops_s = (dft_flop / BF16_PEAK if bf16 else 3 * dft_flop / TF32_PEAK) + mel_flop / FP32_PEAK
         io_bytes = n * span * (2 if bf16 else 4) + (2 * span * k + k * m + n * m) * 4
         bound_ms = 1e3 * max(ops_s, io_bytes / HBM_RATE)
         row_tiles, splits, _ = plan_grid(n, n_tiles, sms)
         row = {"geometry": geometry, "sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
                "grid": [row_tiles, splits], "max_abs_err": abs_err, "rel_err": rel_err,
                "bound": bound, "repeat_bitwise_equal": repeat_equal,
+               "operations": flop, "dft_operations": dft_flop,
                "kernel_ms": kernel_ms, "twin_ms": twin_ms,
                "kernel_tflops": flop / kernel_ms / 1e9, "twin_tflops": flop / twin_ms / 1e9,
                "bound_ms": bound_ms, "bound_by": "operations" if ops_s * HBM_RATE >= io_bytes
@@ -283,13 +300,12 @@ def kernel_vs_twin(seed: int, reps: int, card: str):
 
 def model_golden(name: str):
     """Phase 4: released weights (a golden's ``sd::*``) vs the torch golden
-    on the card. Returns the golden's (meta, state dict)."""
+    on the card."""
     from nisqa_tpu_torch.data.pipeline import matmul_precision
     from nisqa_tpu_torch.models.nisqa import build_model
 
     z = np.load(os.path.join(REPO, "tests", "goldens", f"{name}.npz"), allow_pickle=False)
-    meta = json.loads(str(z["meta"]))
-    sd = {k[4:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd::")}
+    meta, sd = load_golden(name)
     model = build_model(meta["model"], meta["model_args"])
     model.load_state_dict(sd, strict=True)
     model = model.cuda().eval()
@@ -299,7 +315,6 @@ def model_golden(name: str):
     print(f"model {name} ({meta['model']}) vs torch golden at 'highest': max_abs_err={err} "
           f"bound={GOLDEN_BOUND}", flush=True)
     check(y.shape == z["y"].shape and err <= GOLDEN_BOUND, f"{name} golden off by {err}")
-    return meta, sd
 
 
 def write_pcm16(path: str, y, sr: int):
@@ -392,15 +407,13 @@ def make_de_corpus(corpus: str, seed: int):
     return deg, ref, audio_s
 
 
-def make_corpus(tmp: str, meta, sd, seed: int):
+def make_corpus(tmp: str, seed: int):
     """The seeded corpus and a reference-format ``.tar`` of the released
     NISQA_DIM weights with the yaml geometry. Returns (tar, paths, audio-s)."""
     corpus = os.path.join(tmp, "wavs")
     os.makedirs(corpus)
     audio_s = write_corpus(corpus, seed)
-    tar = os.path.join(tmp, "nisqa_dim.tar")
-    args = {**meta["model_args"], **YAML_GEOMETRY, "model": "NISQA_DIM", "name": "NISQA_DIM"}
-    torch.save({"args": args, "model_state_dict": sd, "model_name": "NISQA_DIM"}, tar)
+    tar = golden_tar("g2_dim", YAML_GEOMETRY, os.path.join(tmp, "nisqa_dim.tar"))
     paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
     return tar, paths, audio_s
 
@@ -482,44 +495,6 @@ def main_path(tar: str, paths, audio_s: float, card: str):
     return launches, y_cli
 
 
-def idle_share(fn):
-    """(device busy s, wall s, idle share, {device item: ms}) of one call of
-    ``fn``: the union of the device activity intervals in a
-    ``torch.profiler`` trace over the host wall time of the call (which ends
-    in a synchronise); prints the call's ten largest device items. Returns
-    None for the busy time and the share when the profiler records no device
-    activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
-    if not device:
-        return None, wall, None, {}
-    by_name = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print("  device ms by kernel: " + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top),
-          flush=True)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy_us, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy = (busy_us + cur_e - cur_s) / 1e6
-    return busy, wall, max(0.0, 1.0 - busy / wall), by_name
-
-
 def serving(tar: str, paths, audio_s: float, card: str, paths_ref=None, precision=None):
     """Phase 6 (and phase 10's regimes, with ``paths_ref``): the serving
     engine through ``load_predictor`` at bs 32, at ``precision`` (None: the
@@ -527,6 +502,7 @@ def serving(tar: str, paths, audio_s: float, card: str, paths_ref=None, precisio
     Returns {regime: kernel launches in its pass}."""
     import nisqa_tpu_torch
     from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+    from nisqa_tpu_torch.tools.measure import idle_share
 
     label = "serving" if paths_ref is None else f"de serving at {precision!r}"
     unit = "audio-s/s" if paths_ref is None else "degraded audio-s/s"
@@ -671,7 +647,7 @@ def alignment_share(eng, card: str):
           f"device time = {align_ms / forward_ms:.4f} (CUDA events) on {card}", flush=True)
 
 
-def tts_path(tmp: str, meta, sd, seed: int, card: str):
+def tts_path(tmp: str, seed: int, card: str):
     """Phase 7: the released NISQA-TTS weights at their checkpoint geometry
     through ``run_predict --mode predict_dir --bs 8``, then warm cold and
     cached passes. Returns (the kernel's launches in the CLI run, the
@@ -679,15 +655,14 @@ def tts_path(tmp: str, meta, sd, seed: int, card: str):
     from nisqa_tpu_torch import run_predict
     from nisqa_tpu_torch.data.pipeline import InferenceEngine
     from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
+    from nisqa_tpu_torch.tools.measure import idle_share
 
     corpus, out_dir = os.path.join(tmp, "tts_wavs"), os.path.join(tmp, "tts_out")
     os.makedirs(corpus)
     os.makedirs(out_dir)
     audio_s = write_tts_corpus(corpus, seed)
     paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus))
-    tar = os.path.join(tmp, "nisqa_tts.tar")
-    args = {**meta["model_args"], **TTS_GEOMETRY, "model": "NISQA", "name": "NISQA_TTS"}
-    torch.save({"args": args, "model_state_dict": sd, "model_name": "NISQA"}, tar)
+    tar = golden_tar("g3_tts", TTS_GEOMETRY, os.path.join(tmp, "nisqa_tts.tar"), "NISQA_TTS")
 
     fused_dft_mel.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1006,27 +981,12 @@ def de_scorers(seed: int, card: str):
     torch.cuda.empty_cache()
 
 
-def learnable_mos(paths):
-    """MOS from each file's dominant pitch (the corpus's f0 is 100-300 Hz),
-    mapped to [1, 5]: a spectral property the CNN can learn
-    (``tools/bench_train.py``'s recipe), estimated from the audio."""
-    from nisqa_tpu_torch.audio.wav import read_wav
-
-    mos = []
-    for p in paths:
-        y, sr = read_wav(p)
-        seg = y[: int(0.5 * sr)].astype(np.float64)
-        spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
-        lo, hi = int(80 * len(seg) / sr), int(350 * len(seg) / sr)
-        f0 = (lo + int(np.argmax(spec[lo:hi]))) * sr / len(seg)
-        mos.append(float(np.clip(1.0 + 4.0 * (f0 - 100.0) / 200.0, 1.0, 5.0)))
-    return np.round(mos, 2)
-
-
 def write_train_csv(paths):
     """``train.csv`` beside phase 5's corpus: every 4th 48 kHz file is db
     VAL, the rest (the 16 kHz files among them) db TRAIN; MOS from each
     file's pitch, the dimensions MOS plus seeded noise."""
+    from nisqa_tpu_torch.tools.corpus import learnable_mos
+
     mos = learnable_mos(paths)
     rng = np.random.default_rng(1)
     names = [os.path.basename(p) for p in paths]
@@ -1165,6 +1125,7 @@ def warm_epochs(runner, train_audio_s: float, label: str, card: str):
     host clock (each ends in the epoch's readback), then one profiled for
     the device's idle share. Returns {audio_s_per_s, step_ms (medians),
     idle (None when the profiler records no device activity)}."""
+    from nisqa_tpu_torch.tools.measure import idle_share
     from nisqa_tpu_torch.train.loop import _bias_losses
 
     eng = runner.train_engine
@@ -1247,6 +1208,7 @@ def training(tmp: str, dim_tar: str, paths, reps: int, card: str):
     Returns ({run: kernel launches}, the corpus build's kernel rows)."""
     from nisqa_tpu_torch import run_predict
     from nisqa_tpu_torch.data.pipeline import MsConfig
+    from nisqa_tpu_torch.tools.corpus import learnable_mos
     from nisqa_tpu_torch.train.loop import CHUNK
 
     corpus = os.path.dirname(paths[0])
@@ -1690,6 +1652,91 @@ def data_parallel(tmp: str, tar: str, paths, build_frames: int, reps: int, card:
     return launches, rows
 
 
+def tools_phase(tmp: str, reps: int, card: str):
+    """Phase 14: each measurement tool's ``main`` on the card at a reduced
+    size (``bench`` over 96 files with fewer passes, ``bench_tts`` over 4,
+    ``bench_de`` over 32 pairs, ``bench_train`` over 32 files for 2 epochs);
+    each prints its record on a line of its own. Checks: finite fields, MFU
+    in (0, 100], one kernel launch per cold batch and end, none in a cached
+    pass, the cached passes against the cold one, and ``bench``'s front-end
+    FLOPs at its largest batch equal to phase 3's count of the DFT's
+    products at that shape (the kernel there against its twin) plus the
+    dense mel projection, 2 N K M, written out here: the MFU counts the
+    mel product whole, the bound only its bands. Returns ({tool: kernel
+    launches in its run}, the kernel row at ``bench``'s shape)."""
+    from nisqa_tpu_torch.data.pipeline import InferenceEngine, MsConfig
+    from nisqa_tpu_torch.models.nisqa import build_model
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+    from nisqa_tpu_torch.tools import bench, bench_de, bench_train, bench_tts, corpus, flops
+
+    few = ["--passes", "3", "--devrate-passes", "2", "--async-blocks", "2", "--async-depth", "4"]
+    runs = [
+        ("bench", bench, ["--files", "96", *few], 1, SERVE_BOUND),
+        ("bench_tts", bench_tts, ["--files", "4"], 1, SERVE_BOUND),
+        # default precision: TF32 kernels differ between fused and single batches
+        ("bench_de", bench_de, ["--pairs", "32", *few], 2, DEFAULT_PASS_BOUND),
+    ]
+    launches, records = {}, {}
+    for name, tool, argv, ends, bound in runs:
+        fused_dft_mel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rec = tool.main([*argv, "--corpus-dir", os.path.join(tmp, name)])
+        wall = time.perf_counter() - t0
+        launches[f"tool_{name}"] = fused_dft_mel.LAUNCHES
+        records[name] = rec
+        print(f"tool {name}: {rec['value']:.1f} {rec['unit']}, mfu {rec['mfu_pct']:.4f}% of "
+              f"{rec['peak_tflops']} TFLOP/s, cold pass launches {rec['launches_cold_pass']} for "
+              f"{rec['plan_batches']} batches, cached max_abs_diff {rec['cached_max_abs_diff']}, "
+              f"{wall:.1f} s wall on {card}", flush=True)
+        bad = [k for k, v in rec.items() if isinstance(v, float) and not math.isfinite(v)]
+        check(not bad, f"tool {name}: non-finite fields {bad}")
+        check(0 < rec["mfu_pct"] <= 100, f"tool {name}: mfu_pct {rec['mfu_pct']}")
+        check(rec["launches_cold_pass"] == ends * rec["plan_batches"]
+              and rec["launches_cached_passes"] == 0,
+              f"tool {name}: {rec['launches_cold_pass']} launches in the cold pass and "
+              f"{rec['launches_cached_passes']} in the cached ones for {rec['plan_batches']} "
+              f"batches and {ends} end(s)")
+        check(rec["cached_max_abs_diff"] <= bound,
+              f"tool {name}: cached passes off by {rec['cached_max_abs_diff']} from the cold one")
+
+    # bench's front-end count against phase 3's at its largest batch
+    ms = MsConfig(YAML_GEOMETRY)
+    _, paths = corpus.bench_corpus(os.path.join(tmp, "bench"), 96)
+    meta, _ = load_golden("g2_dim")
+    plan = InferenceEngine(build_model("NISQA_DIM", meta["model_args"]), ms, "cuda",
+                           batch_size=BATCH, cache_mb=0).plan(paths)
+    (sr, bucket, _), _ = max(plan, key=lambda b: b[0][1])
+    row = kernel_case("tools bench", ms, sr, BATCH * ms.frames_for_bucket(bucket), ("fast",),
+                      reps, np.random.default_rng(3), card)[0]
+    per_batch = flops.batch_front_end_flops(ms, sr, bucket, BATCH)
+    dense_mel = 2 * row["N"] * row["K"] * row["M"]
+    band_mel = row["operations"] - row["dft_operations"]
+    extra = sum(flops.batch_front_end_flops(ms, g[0], g[1], BATCH) for g, _ in plan)
+    rec = records["bench"]
+    print(f"tool bench front-end FLOPs at bucket {bucket}: {per_batch} (tools.flops) vs "
+          f"{row['dft_operations']} + {dense_mel} (phase 3's DFT products at N {row['N']} and "
+          f"the dense mel product; the bound's band-limited mel step {band_mel}); cold extra "
+          f"over the plan {extra} vs the record's "
+          f"{rec['cold_flops_per_pass'] - rec['cached_flops_per_pass']}", flush=True)
+    check(per_batch == row["dft_operations"] + dense_mel,
+          "tools.flops and phase 3 count the front-end apart")
+    check(extra == rec["cold_flops_per_pass"] - rec["cached_flops_per_pass"],
+          "bench's cold extra is not its plan's front-end")
+
+    fused_dft_mel.LAUNCHES = 0
+    rec = bench_train.main(["--files", "32", "--epochs", "2",
+                            "--corpus-dir", os.path.join(tmp, "bench_train")])
+    launches["tool_bench_train"] = fused_dft_mel.LAUNCHES
+    print(f"tool bench_train: {rec['value']:.1f} train audio-s/s, epochs {rec['epoch_sec']} s, "
+          f"idle share of a warm epoch {rec['idle_warm_epoch']}, launches {rec['launches']} on "
+          f"{card}", flush=True)
+    bad = [k for k, v in rec.items() if isinstance(v, float) and not math.isfinite(v)]
+    check(not bad, f"tool bench_train: non-finite fields {bad}")
+    # 26 train files: one 64-row build chunk; 6 validation files: one cold batch
+    check(rec["launches"] == 2, f"tool bench_train: {rec['launches']} launches, not 2")
+    return launches, row
+
+
 def import_check():
     """The port loaded nothing of JAX or of the JAX package in this run, and
     importing it and all its submodules in a fresh process after torch loads
@@ -1704,6 +1751,7 @@ def import_check():
             "for m in pkgutil.walk_packages(nisqa_tpu_torch.__path__, 'nisqa_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "assert 'nisqa_tpu_torch.parallel.mesh' in sys.modules\n"
+            "assert 'nisqa_tpu_torch.tools.bench_train' in sys.modules\n"
             "print(sorted(m for m in sys.modules if m not in base and m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml', 'tqdm', 'matplotlib')))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
@@ -1747,13 +1795,13 @@ def main(argv=None):
 
     # 3-12
     results, main, tts = kernel_vs_twin(opts.seed, opts.reps, card)
-    meta, sd = model_golden("g2_dim")
-    meta_tts, sd_tts = model_golden("g3_tts")
+    model_golden("g2_dim")
+    model_golden("g3_tts")
     with tempfile.TemporaryDirectory(prefix="nisqa_smoke_") as tmp:
-        tar, paths, audio_s = make_corpus(tmp, meta, sd, opts.seed)
+        tar, paths, audio_s = make_corpus(tmp, opts.seed)
         launches, y_dir = main_path(tar, paths, audio_s, card)
         serving_launches = serving(tar, paths, audio_s, card)
-        tts_launches, tts_model = tts_path(tmp, meta_tts, sd_tts, opts.seed, card)
+        tts_launches, tts_model = tts_path(tmp, opts.seed, card)
         lstm_takes_no_sync(tts_model, card)
         del tts_model
         csv_launches = csv_and_evaluate(tmp, tar, paths, y_dir, opts.seed, card)
@@ -1763,7 +1811,8 @@ def main(argv=None):
         with cudnn_deterministic():
             dp_launches, dp_rows = data_parallel(tmp, tar, paths, build_rows[0]["N"] // 64,
                                                  opts.reps, card)
-    import_check()
+        tool_launches, tool_row = tools_phase(tmp, opts.reps, card)
+    import_check()  # phase 13, last: it covers phase 14's imports
 
     fast, exact = main["fast"], main["exact"]
     record = {"kernels": [{
@@ -1772,7 +1821,7 @@ def main(argv=None):
         "source": "nisqa_tpu_torch/csrc/dft_mel.cu",
         "replaces": "nisqa_tpu/ops/pallas_mel.py:99",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results + build_rows + dp_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in results + build_rows + dp_rows + [tool_row]),
         "ms": fast["kernel_ms"],
         "plain_ms": fast["twin_ms"],
         "bound_ms": fast["bound_ms"],
@@ -1802,9 +1851,15 @@ def main(argv=None):
         "dp_shard_plain_ms": dp_rows[0]["twin_ms"],
         "dp_shard_bound_ms": dp_rows[0]["bound_ms"],
         "dp_shard_bound_by": dp_rows[0]["bound_by"],
+        # phase 14: bench's largest cold batch, fast mode
+        "tools_bench_shape": {k: tool_row[k] for k in ("sr", "N", "span", "K", "M")},
+        "tools_bench_ms": tool_row["kernel_ms"],
+        "tools_bench_plain_ms": tool_row["twin_ms"],
+        "tools_bench_bound_ms": tool_row["bound_ms"],
+        "tools_bench_bound_by": tool_row["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
                              "tts_predict_dir": tts_launches, **csv_launches, **de_launches,
-                             **train_launches},
+                             **train_launches, **tool_launches},
         # phase 12: per rank
         "launches_by_rank": dp_launches,
     }]}

@@ -106,10 +106,11 @@ never prints its last line):
      validation predictions) of W = 1, parameters and BN buffers identical
      on both ranks. Each rank's wall time and a train step's collectives
      timed alone; the kernel at a W = 2 fill step's shape against its twin;
-  13. imports (run last, after phase 14): nothing of jax or ``nisqa_tpu``
-     was loaded, and a fresh import of every port module, the tools
-     (``nisqa_tpu_torch.tools.*``) included, loads no jax, pandas, yaml,
-     tqdm, matplotlib or ``nisqa_tpu``;
+  13. imports (run last, after phases 14 and 15): nothing of jax or
+     ``nisqa_tpu`` was loaded, and a fresh import of every port module, the
+     tools (``nisqa_tpu_torch.tools.*``, ``tools.parity`` among them)
+     included, loads no jax, pandas, yaml, tqdm, matplotlib or
+     ``nisqa_tpu``;
   14. tools: each measurement tool's ``main`` (``nisqa_tpu_torch.tools``)
      on the card at a reduced size: ``bench`` over 96 files of its corpus
      with 3 fetched, 2 fetch-free and 2 blocks of 4 async passes,
@@ -121,7 +122,18 @@ never prints its last line):
      precision: 1e-2), ``bench_train``'s 2 launches (one build chunk, one
      cold validation batch); ``bench``'s front-end FLOPs at its largest
      batch equal phase 3's count of the DFT's products at that shape, where
-     the kernel is held against its twin, plus the dense mel product.
+     the kernel is held against its twin, plus the dense mel product;
+  15. parity at corpus scale: ``nisqa_tpu_torch.tools.parity``'s ``main``
+     over the full corpora (384 bench files and 32 TTS clips, completing
+     phase 14's folders; 96 DE pairs written portably), all nine keys,
+     each key's predictions against ``nisqa_tpu``'s stored float32 ones
+     (``tools/parity_ref.npz``): every key within its budget and within
+     3 x its recorded MOS MAE + 2e-4 of the H100 baseline
+     ``tools/parity_h100.json``, one kernel launch per cold batch and end;
+     prints the record and its wall time. Then ``de_trained.tar::auto``'s
+     distance from the float32 reference split by source: the bf16 DFT
+     alone, TF32 in cuDNN alone, in cuBLAS alone, in both, and all of them
+     (the key).
 
 The last two lines are a JSON record of the kernel and
 ``{"ok": true, "device": {...}}``.
@@ -1737,6 +1749,82 @@ def tools_phase(tmp: str, reps: int, card: str):
     return launches, row
 
 
+def parity_phase(tmp: str, card: str):
+    """Phase 15: ``tools.parity``'s ``main`` on the card over the full
+    corpora in ``tmp`` (phase 14's folders, completed), every key held to
+    its budget and to the recorded H100 baseline by the tool itself (it
+    raises), and here to one kernel launch per cold batch and end; then
+    :func:`de_precision_split`. Returns {"parity": kernel launches}."""
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+    from nisqa_tpu_torch.tools import parity
+
+    fused_dft_mel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rec = parity.main(["--corpus-dir", tmp, "--check-record", parity.H100_RECORD])
+    wall = time.perf_counter() - t0
+    launches = fused_dft_mel.LAUNCHES
+    keys = {k: m for k, m in rec.items() if not k.startswith("_")}
+    check(set(keys) == set(parity.KEYS), f"parity: keys {sorted(keys)}")
+    for key, m in keys.items():
+        name = parity.CHECKPOINT_CORPUS[key.split("::")[0]]
+        ends = 2 if name == "de" else 1
+        check(m["n"] == parity.CORPORA[name][0], f"parity {key}: n {m['n']}")
+        check(m["batches"] > 0 and m["launches"] == ends * m["batches"],
+              f"parity {key}: {m['launches']} launches for {m['batches']} batches and {ends} "
+              "end(s)")
+    check(launches == sum(m["launches"] for m in keys.values()),
+          f"parity: {launches} launches in the run, the keys count otherwise")
+    print(f"parity at corpus scale: {len(keys)} keys within budget and within 3 x recorded + "
+          f"2e-4 of {os.path.relpath(parity.H100_RECORD, REPO)}, {launches} kernel launches, "
+          f"{wall:.1f} s wall on {card}", flush=True)
+    de_precision_split(tmp, card)
+    return {"parity": launches}
+
+
+def de_precision_split(tmp: str, card: str):
+    """``de_trained.tar::auto``'s distance from the float32 reference over
+    the 96 DE pairs, by source: the bf16 DFT alone ("highest", fast
+    front-end), TF32 in cuDNN alone, in cuBLAS alone and in both (the exact
+    front-end at "default", one flag held off around each pass), and the
+    key itself (bf16 DFT and TF32 in both). Prints; checks nothing."""
+    from nisqa_tpu_torch import load_predictor
+    from nisqa_tpu_torch.data import pipeline
+    from nisqa_tpu_torch.tools import corpus, parity
+
+    arrays, meta = parity.load_reference()
+    n, bs, folder = parity.CORPORA["de"]
+    _, deg, ref, _ = corpus.de_corpus(os.path.join(tmp, folder), n, portable=True)
+    parity.check_corpus(arrays, meta, "de", parity.corpus_files(deg, ref))
+    plain = pipeline.matmul_precision
+
+    def tf32_only(cudnn: bool, cublas: bool):
+        @contextlib.contextmanager
+        def flags(precision):
+            prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, cublas
+            try:
+                yield
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        return flags
+
+    cases = (("bf16 DFT alone", "highest", "fast", None),
+             ("TF32 in cuDNN alone", "default", "exact", tf32_only(True, False)),
+             ("TF32 in cuBLAS alone", "default", "exact", tf32_only(False, True)),
+             ("TF32 in both", "default", "exact", None),
+             ("bf16 DFT and TF32 in both (the key)", "default", "fast", None))
+    try:
+        for label, precision, fe, flags in cases:
+            pipeline.matmul_precision = flags or plain
+            predict = load_predictor(parity.DE_TAR, batch_size=bs, precision=precision,
+                                     fe_precision=fe, num_workers=4, cache_mb=0)
+            m = parity.compare(predict(deg, ref), arrays["ref::de_trained.tar"])
+            print(f"parity de_trained.tar, {label}: MOS MAE {m['mos_mae']:.6f}, max "
+                  f"{m['max_abs']:.6f}, pearson_r {m['pearson_r']:.7f} on {card}", flush=True)
+    finally:
+        pipeline.matmul_precision = plain
+
+
 def import_check():
     """The port loaded nothing of JAX or of the JAX package in this run, and
     importing it and all its submodules in a fresh process after torch loads
@@ -1752,6 +1840,7 @@ def import_check():
             "    importlib.import_module(m.name)\n"
             "assert 'nisqa_tpu_torch.parallel.mesh' in sys.modules\n"
             "assert 'nisqa_tpu_torch.tools.bench_train' in sys.modules\n"
+            "assert 'nisqa_tpu_torch.tools.parity' in sys.modules\n"
             "print(sorted(m for m in sys.modules if m not in base and m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml', 'tqdm', 'matplotlib')))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
@@ -1812,7 +1901,8 @@ def main(argv=None):
             dp_launches, dp_rows = data_parallel(tmp, tar, paths, build_rows[0]["N"] // 64,
                                                  opts.reps, card)
         tool_launches, tool_row = tools_phase(tmp, opts.reps, card)
-    import_check()  # phase 13, last: it covers phase 14's imports
+        parity_launches = parity_phase(tmp, card)
+    import_check()  # phase 13, last: it covers the imports of phases 14 and 15
 
     fast, exact = main["fast"], main["exact"]
     record = {"kernels": [{
@@ -1859,7 +1949,7 @@ def main(argv=None):
         "tools_bench_bound_by": tool_row["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
                              "tts_predict_dir": tts_launches, **csv_launches, **de_launches,
-                             **train_launches, **tool_launches},
+                             **train_launches, **tool_launches, **parity_launches},
         # phase 12: per rank
         "launches_by_rank": dp_launches,
     }]}

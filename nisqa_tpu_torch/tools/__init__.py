@@ -13,6 +13,11 @@ Counterparts of the JAX package's measurement tools (``bench.py`` and
   * ``bench_train`` train audio-s/s of NISQA from scratch over the bench
                     corpus, from the device-resident corpus;
   * ``flops``       the analytic FLOP count of a serving pass;
+  * ``parity``      each released checkpoint's predictions over the
+                    corpora against ``nisqa_tpu``'s, stored as numbers in
+                    ``parity_ref.npz``, with the JAX drift gate's budgets
+                    and its bound against a recorded run
+                    (``parity_h100.json``);
   * ``corpus``      the seeded corpora the tools run over, and the
                     reference-format ``.tar`` of a golden's weights;
   * ``measure``     what the tools share: the device idle share from

@@ -10,7 +10,8 @@ port's own ``write_wav``, so that the same seed gives the same bytes:
   * :func:`de_corpus`: ``tools/bench_de.py::make_de_corpus``, 8 s pairs at
     48 kHz: the reference a clean three-tone signal, the degraded end the
     reference plus white noise at an SNR uniform in [0, 40] dB, and
-    MOS = 1 + 4 * SNR / 40;
+    MOS = 1 + 4 * SNR / 40; with ``portable`` the same bytes on every
+    machine;
   * :func:`learnable_mos`: ``tools/bench_train.py::_learnable_mos``.
 
 Two things differ from the originals. A file is written under a temporary
@@ -28,6 +29,7 @@ geometry.
 from __future__ import annotations
 
 import json
+import math
 import os
 import tempfile
 
@@ -104,9 +106,16 @@ def tts_corpus(out_dir: str, n_files: int = 16, seed: int = 3):
     return total, paths
 
 
-def de_corpus(out_dir: str, n_pairs: int = 96, seed: int = 0):
+def de_corpus(out_dir: str, n_pairs: int = 96, seed: int = 0, portable: bool = False):
     """``tools/bench_de.py``'s pair corpus. Returns (degraded audio seconds,
-    degraded paths, reference paths, MOS)."""
+    degraded paths, reference paths, MOS).
+
+    The noise's scale comes from the mean powers of the two signals, which
+    the original takes as numpy's float32 means: their last bit depends on
+    the CPU's vector width, and then so do most samples of the degraded
+    file. ``portable`` takes them exactly rounded (``math.fsum``) instead,
+    so that every machine writes the same bytes (a stored reference's
+    corpus)."""
     rng = np.random.default_rng(seed)
     os.makedirs(out_dir, exist_ok=True)
     n = int(SR * DE_SECONDS)
@@ -119,7 +128,11 @@ def de_corpus(out_dir: str, n_pairs: int = 96, seed: int = 0):
                + 0.05 * np.sin(2 * np.pi * 3.1 * f0 * t)).astype(np.float32)
         snr_db = rng.uniform(0.0, 40.0)
         noise = rng.standard_normal(n).astype(np.float32)
-        noise *= np.sqrt((ref ** 2).mean() / (10 ** (snr_db / 10)) / (noise ** 2).mean())
+        if portable:
+            power = [math.fsum(np.square(x, dtype=np.float64)) / n for x in (ref, noise)]
+            noise *= math.sqrt(power[0] / (10 ** (snr_db / 10)) / power[1])
+        else:
+            noise *= np.sqrt((ref ** 2).mean() / (10 ** (snr_db / 10)) / (noise ** 2).mean())
         deg = np.clip(ref + noise, -0.999, 0.999)
         rp = os.path.join(out_dir, f"ref_{i:03d}.wav")
         dp = os.path.join(out_dir, f"deg_{i:03d}.wav")

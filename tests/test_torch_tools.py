@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
-from nisqa_tpu_torch.audio.wav import write_wav
+from nisqa_tpu_torch.audio.wav import read_wav, write_wav
 from nisqa_tpu_torch.compat.checkpoint import build_from_args, load_model_from_tar
 from nisqa_tpu_torch.models.td import LSTM
 from nisqa_tpu_torch.tools import bench, bench_de, bench_train, bench_tts, corpus, flops
@@ -120,6 +120,22 @@ def test_de_corpus_bytes_match_bench_de(tmp_path):
     np.testing.assert_array_equal(mos, mos_j)
     _same_files(deg, deg_j)
     _same_files(ref, ref_j)
+
+
+def test_portable_de_corpus_moves_only_the_noise_scale(tmp_path):
+    """``portable`` takes the mean powers exactly rounded: the same reference
+    files and MOS, degraded samples within one 16-bit step, and the noise at
+    the drawn SNR."""
+    _, deg, ref, mos = corpus.de_corpus(str(tmp_path / "float32"), 3)
+    _, deg_p, ref_p, mos_p = corpus.de_corpus(str(tmp_path / "portable"), 3, portable=True)
+    _same_files(ref, ref_p)
+    np.testing.assert_array_equal(mos, mos_p)
+    for d, dp, r, m in zip(deg, deg_p, ref_p, mos_p):
+        (y, _), (yp, _), (yr, _) = (read_wav(p) for p in (d, dp, r))
+        assert np.abs(yp - y).max() <= 1.0 / 32768 + 1e-9
+        noise = yp.astype(np.float64) - yr
+        snr = 10 * np.log10(np.mean(np.square(yr, dtype=np.float64)) / np.mean(noise ** 2))
+        assert abs(1.0 + 4.0 * snr / 40.0 - m) < 0.02
 
 
 def test_learnable_mos_matches_bench_train(tmp_path):
@@ -373,7 +389,7 @@ def test_bench_train_main(tiny, capsys):
 # -- (g) no card, no run ---------------------------------------------------------------
 
 
-TOOLS = ("bench", "bench_tts", "bench_de", "bench_train")
+TOOLS = ("bench", "bench_tts", "bench_de", "bench_train", "parity")
 
 
 @pytest.fixture(scope="module")

@@ -106,11 +106,11 @@ never prints its last line):
      validation predictions) of W = 1, parameters and BN buffers identical
      on both ranks. Each rank's wall time and a train step's collectives
      timed alone; the kernel at a W = 2 fill step's shape against its twin;
-  13. imports (run last, after phases 14 and 15): nothing of jax or
+  13. imports (run last, after phases 14 to 16): nothing of jax or
      ``nisqa_tpu`` was loaded, and a fresh import of every port module, the
-     tools (``nisqa_tpu_torch.tools.*``, ``tools.parity`` among them)
-     included, loads no jax, pandas, yaml, tqdm, matplotlib or
-     ``nisqa_tpu``;
+     tools (``nisqa_tpu_torch.tools.*``, ``tools.parity`` among them),
+     ``graft_entry`` and ``features.segments`` included, loads no jax,
+     pandas, yaml, tqdm, matplotlib or ``nisqa_tpu``;
   14. tools: each measurement tool's ``main`` (``nisqa_tpu_torch.tools``)
      on the card at a reduced size: ``bench`` over 96 files of its corpus
      with 3 fetched, 2 fetch-free and 2 blocks of 4 async passes,
@@ -133,7 +133,20 @@ never prints its last line):
      prints the record and its wall time. Then ``de_trained.tar::auto``'s
      distance from the float32 reference split by source: the bf16 DFT
      alone, TF32 in cuDNN alone, in cuBLAS alone, in both, and all of them
-     (the key).
+     (the key);
+  16. the root entry points (``nisqa_tpu_torch.graft_entry``): (a)
+     ``entry()`` on the card, its (4, 5) output at "highest" within 2e-4
+     of the same weights on the CPU, the forward's median wall time over
+     ``--reps`` runs at "highest" and at the default precision; (b)
+     ``dryrun_multichip`` over W = 2 ranks (gloo on one card, NCCL on two
+     or more) and, with more than two cards, over W = the card count
+     (NCCL), each launch a ``torchrun`` subprocess killed whole after
+     ``DP_TIMEOUT``: its three checks (a data-parallel train step of the
+     full flagship model, a resident ``TrainEngine`` epoch, serving over
+     the group against one process), each rank launching the CUDA kernel
+     once per cold batch it owns; (c) the kernel against its twin at the
+     dry run's shape (8 kHz, 24 mels, n_fft 512: one cold batch of W = 2
+     rows), exact mode.
 
 The last two lines are a JSON record of the kernel and
 ``{"ok": true, "device": {...}}``.
@@ -1825,6 +1838,74 @@ def de_precision_split(tmp: str, card: str):
         pipeline.matmul_precision = plain
 
 
+def entry_points(reps: int, card: str):
+    """Phase 16: ``entry()`` on the card against the same weights on the
+    CPU, with the forward's median wall time; ``dryrun_multichip`` over W =
+    2 ranks and, with more than two cards, over the card count, each rank's
+    kernel launches held to its cold batches; the kernel against its twin
+    at the dry run's shape. Returns ({run: launches per rank}, the kernel's
+    rows)."""
+    from nisqa_tpu_torch.data.pipeline import MsConfig, matmul_precision
+    from nisqa_tpu_torch.graft_entry import DRYRUN_ARGS, DRYRUN_SR, dryrun_multichip, entry
+
+    # (a) entry(): the card against the same weights on the CPU, then its time
+    fn, args = entry()
+    cpu_fn, cpu_args = entry(device="cpu",
+                             state_dict={k: v.cpu() for k, v in fn.state_dict().items()})
+    with torch.inference_mode():
+        with matmul_precision("highest"):
+            y = fn(*args).cpu().numpy()
+        y_cpu = cpu_fn(*cpu_args).numpy()
+        err = float(np.abs(y - y_cpu).max())
+        times = {}
+        for precision in ("highest", "default"):
+            with matmul_precision(precision):
+                fn(*args)
+                torch.cuda.synchronize()
+                ms = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn(*args)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+            times[precision] = float(np.median(ms))
+    print(f"entry(): NISQA_DIM forward of segs {tuple(args[0].shape)} -> {y.shape} on the card "
+          f"at 'highest', max_abs_err vs the same weights on the CPU {err:.3e} (bound "
+          f"{GOLDEN_BOUND}); median wall of {reps} forwards {times['highest']:.3f} ms at "
+          f"'highest', {times['default']:.3f} ms at the default precision on {card}", flush=True)
+    check(y.shape == (4, 5) and bool(np.isfinite(y).all()) and err <= GOLDEN_BOUND,
+          f"entry() on the card off the CPU by {err}")
+
+    # (b) dryrun_multichip over the group, a torchrun subprocess each
+    cards = torch.cuda.device_count()
+    launches = {}
+    for w in sorted({2, cards} if cards > 2 else {2}):
+        t0 = time.perf_counter()
+        rec = dryrun_multichip(w, timeout=DP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        backend = "nccl" if w <= cards else "gloo"
+        print(f"dryrun_multichip({w}) ({rec['backend']}): step loss {rec['step_loss']:.4f}, epoch "
+              f"loss {rec['epoch_loss']:.4f}, serving max_abs_diff vs one process "
+              f"{rec['max_abs_diff']:.3e}; fused_dft_mel launches per rank "
+              f"{rec['launches_by_rank']} for their {rec['batches_by_rank']} cold batches; "
+              f"rank 0's checks {json.dumps(rec['wall_s'])} s, {wall:.3f} s wall with torchrun "
+              f"on {card}", flush=True)
+        check(rec["device"] == "cuda" and rec["backend"] == backend,
+              f"dryrun_multichip({w}) ran on {rec['device']} over {rec['backend']}")
+        check(rec["launches_by_rank"] == rec["batches_by_rank"]
+              and sum(rec["batches_by_rank"]) > 0, f"dryrun_multichip({w}): launches per rank")
+        check(w > 2 or min(rec["launches_by_rank"]) >= 1,
+              f"dryrun_multichip({w}): a rank launched no kernel")
+        launches[f"dryrun_w{w}"] = rec["launches_by_rank"]
+
+    # (c) the kernel at the dry run's shape: one cold batch of 2 rows of 0.7 s at 8 kHz
+    ms = MsConfig(DRYRUN_ARGS)
+    bucket = ms.bucket_for(ms.n_wins(ms.n_frames(int(DRYRUN_SR * 0.7), DRYRUN_SR)))
+    rows = kernel_case("dryrun", ms, DRYRUN_SR, 2 * ms.frames_for_bucket(bucket), ("exact",),
+                       reps, np.random.default_rng(4), card)
+    return launches, rows
+
+
 def import_check():
     """The port loaded nothing of JAX or of the JAX package in this run, and
     importing it and all its submodules in a fresh process after torch loads
@@ -1841,6 +1922,8 @@ def import_check():
             "assert 'nisqa_tpu_torch.parallel.mesh' in sys.modules\n"
             "assert 'nisqa_tpu_torch.tools.bench_train' in sys.modules\n"
             "assert 'nisqa_tpu_torch.tools.parity' in sys.modules\n"
+            "assert 'nisqa_tpu_torch.graft_entry' in sys.modules\n"
+            "assert 'nisqa_tpu_torch.features.segments' in sys.modules\n"
             "print(sorted(m for m in sys.modules if m not in base and m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'nisqa_tpu', 'pandas', 'yaml', 'tqdm', 'matplotlib')))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
@@ -1902,7 +1985,8 @@ def main(argv=None):
                                                  opts.reps, card)
         tool_launches, tool_row = tools_phase(tmp, opts.reps, card)
         parity_launches = parity_phase(tmp, card)
-    import_check()  # phase 13, last: it covers the imports of phases 14 and 15
+    entry_launches, entry_rows = entry_points(opts.reps, card)
+    import_check()  # phase 13, last: it covers the imports of phases 14 to 16
 
     fast, exact = main["fast"], main["exact"]
     record = {"kernels": [{
@@ -1911,7 +1995,8 @@ def main(argv=None):
         "source": "nisqa_tpu_torch/csrc/dft_mel.cu",
         "replaces": "nisqa_tpu/ops/pallas_mel.py:99",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results + build_rows + dp_rows + [tool_row]),
+        "max_abs_err": max(r["max_abs_err"] for r in results + build_rows + dp_rows + [tool_row]
+                           + entry_rows),
         "ms": fast["kernel_ms"],
         "plain_ms": fast["twin_ms"],
         "bound_ms": fast["bound_ms"],
@@ -1947,11 +2032,17 @@ def main(argv=None):
         "tools_bench_plain_ms": tool_row["twin_ms"],
         "tools_bench_bound_ms": tool_row["bound_ms"],
         "tools_bench_bound_by": tool_row["bound_by"],
+        # phase 16: the dry run's cold batch of 2 rows at 8 kHz / 24 mels, exact mode
+        "dryrun_shape": {k: entry_rows[0][k] for k in ("sr", "N", "span", "K", "M")},
+        "dryrun_ms": entry_rows[0]["kernel_ms"],
+        "dryrun_plain_ms": entry_rows[0]["twin_ms"],
+        "dryrun_bound_ms": entry_rows[0]["bound_ms"],
+        "dryrun_bound_by": entry_rows[0]["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
                              "tts_predict_dir": tts_launches, **csv_launches, **de_launches,
                              **train_launches, **tool_launches, **parity_launches},
-        # phase 12: per rank
-        "launches_by_rank": dp_launches,
+        # phases 12 and 16: per rank
+        "launches_by_rank": {**dp_launches, **entry_launches},
     }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)

@@ -5,7 +5,9 @@ of the audio decoders, the filterbank, the batch-row padding, the native
 loader's bindings and the model-args extraction. The same inputs go through
 both copies here (only tests import both packages): WAV and FLAC decode
 bit-identical through the Python decoders and through the native loader,
-filterbanks bit-identical, model args equal on every golden's args.
+filterbanks bit-identical, model args equal on every golden's args, the
+host segmentation reference equal (errors included) and the port's batched
+``seg_fn`` equal to it per file.
 """
 
 import glob
@@ -24,10 +26,12 @@ from nisqa_tpu.audio import melspec as jax_melspec
 from nisqa_tpu.audio import wav as jax_wav
 from nisqa_tpu.compat.model_args import model_args_from_ckpt_args as jax_model_args
 from nisqa_tpu.data import native as jax_native
+from nisqa_tpu.features import segments as jax_segments
 from nisqa_tpu_torch.audio import codec, filters, melspec
 from nisqa_tpu_torch.audio import wav as wavio
 from nisqa_tpu_torch.compat.model_args import model_args_from_ckpt_args
 from nisqa_tpu_torch.data import native
+from nisqa_tpu_torch.features import segments
 from tests.test_e2e import TINY_ARGS
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
@@ -165,3 +169,65 @@ def test_model_args_equal_on_goldens():
     assert len(cases) >= 10
     for name, args in cases.items():
         assert model_args_from_ckpt_args(dict(args)) == jax_model_args(dict(args)), name
+
+
+# (n_mels, frames, seg_length, seg_hop, max_length): tests/test_audio.py's
+# case, hop 1 filling max_length exactly, the dry run's 24-mel geometry, and
+# the three errors
+SEG_CASES = {"hop4": (48, 100, 15, 4, 40), "hop1_full": (48, 100, 15, 1, 86),
+             "tiny": (24, 71, 7, 2, 64), "even_seg_length": (48, 30, 14, 1, 20),
+             "too_short": (48, 10, 15, 1, 20), "over_max_length": (48, 100, 15, 4, 10)}
+
+
+def _outcome(fn, *args):
+    """("ok", result) or ("raised", the error's type and message)."""
+    try:
+        return "ok", fn(*args)
+    except ValueError as e:
+        return "raised", (type(e), str(e))
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_segment_np_equal(case):
+    n_mels, w, s, hop, max_length = SEG_CASES[case]
+    spec = np.random.default_rng(1).standard_normal((n_mels, w)).astype(np.float32)
+    kind, got = _outcome(segments.segment_np, spec, s, hop, max_length)
+    want = _outcome(jax_segments.segment_np, spec, s, hop, max_length)
+    assert kind == want[0], (got, want)
+    if kind == "raised":
+        assert got == want[1]
+    else:
+        np.testing.assert_array_equal(got[0], want[1][0])
+        assert got[0].dtype == want[1][0].dtype and got[1] == want[1][1]
+
+
+@pytest.mark.parametrize("n_frames,seg_length,seg_hop",
+                         [(100, 15, 1), (100, 15, 4), (15, 15, 4), (71, 7, 2), (14, 15, 4),
+                          (10, 15, 1)])
+def test_n_wins_for_equal(n_frames, seg_length, seg_hop):
+    got = _outcome(segments.n_wins_for, n_frames, seg_length, seg_hop)
+    assert got == _outcome(jax_segments.n_wins_for, n_frames, seg_length, seg_hop)
+
+
+@pytest.mark.parametrize("seg_length,seg_hop,t_bucket", [(15, 4, 40), (15, 1, 90), (7, 2, 64)])
+def test_port_seg_fn_matches_segment_np_per_file(seg_length, seg_hop, t_bucket):
+    """The port's batched windowing (``data/front_end.py::seg_fn``) against
+    the copy's per-file oracle, as tests/test_audio.py holds nisqa_tpu's."""
+    import torch
+
+    from nisqa_tpu_torch.data.front_end import seg_fn
+    from nisqa_tpu_torch.data.pipeline import MsConfig
+
+    sr = 8000
+    hop = int(sr * 0.01)
+    ms = MsConfig({"ms_seg_length": seg_length, "ms_seg_hop_length": seg_hop,
+                   "ms_max_segments": 160})
+    w = ms.frames_for_bucket(t_bucket)  # the front-end's frames at this bucket
+    spec = np.random.default_rng(2).standard_normal((2, w, 48)).astype(np.float32)
+    n_frames = np.array([100, 57], dtype=np.int32)
+    n_samples = ((n_frames - 1) * hop).astype(np.int32)  # n_frames = 1 + n // hop
+    segs, n_wins = seg_fn(ms, sr, t_bucket, torch.from_numpy(spec), torch.from_numpy(n_samples))
+    for b in range(2):
+        ref, ref_n = segments.segment_np(spec[b, : n_frames[b]].T, seg_length, seg_hop, t_bucket)
+        assert int(n_wins[b]) == ref_n
+        np.testing.assert_array_equal(segs[b].numpy(), ref)

@@ -17,8 +17,13 @@ never prints its last line):
      32 x 663 frame rows, the largest and smallest buckets; a ragged N of 43
      that splits K across blocks; 16 kHz with K = 2,049; 44.1 kHz with an
      882-sample span) and the TTS path's (48 kHz at fmax 8 kHz, K = 768,
-     N = 8 x 6,014 and a ragged 1,001), both front-end modes, with
-     CUDA-event times, TFLOP/s and the bound of each and a bitwise repeat;
+     N = 8 x 6,014 and a ragged 1,001), then 80 and 128 mel bands (two
+     chunks of the kernel's 64-band tile) at the 48 and 16 kHz main shapes
+     and 80 at N 43 (split K over two chunks), both front-end modes, with
+     CUDA-event times, TFLOP/s and the bound of each, a bitwise repeat and
+     the output's sha256 (frames seeded per case: ``--kernel-hashes``
+     prints the hashes of the cases up to 64 bands alone, also for an
+     older checkout's kernel);
   4. models: the released NISQA_DIM and NISQA-TTS weights
      (``tests/goldens/g2_dim.npz``, ``g3_tts.npz``) against their torch
      goldens at "highest" precision;
@@ -125,7 +130,9 @@ never prints its last line):
      the kernel is held against its twin, plus the dense mel product;
   15. parity at corpus scale: ``nisqa_tpu_torch.tools.parity``'s ``main``
      over the full corpora (384 bench files and 32 TTS clips, completing
-     phase 14's folders; 96 DE pairs written portably), all nine keys,
+     phase 14's folders; 96 DE pairs written portably; 128 bench files at
+     16 kHz), all eleven keys (``nisqa.tar@16k`` and the 80-band
+     ``nisqa_dim80.tar`` among them),
      each key's predictions against ``nisqa_tpu``'s stored float32 ones
      (``tools/parity_ref.npz``): every key within its budget and within
      3 x its recorded MOS MAE + 2e-4 of the H100 baseline
@@ -146,7 +153,20 @@ never prints its last line):
      the group against one process), each rank launching the CUDA kernel
      once per cold batch it owns; (c) the kernel against its twin at the
      dry run's shape (8 kHz, 24 mels, n_fft 512: one cold batch of W = 2
-     rows), exact mode.
+     rows), exact mode;
+  17. 80 mel bands (run after phase 15): a seeded NISQA_DIM at the yaml
+     geometry with ``ms_n_mels`` 80 (``g2_dim``'s weights perturbed from
+     seed 80) over phase 5's corpus through ``load_predictor``: phase 6's
+     regimes at "highest" (every regime within 1e-5 of the cold pass, one
+     launch per cold batch), cold passes at "highest" and at the default
+     precision within 1e-3 and 1e-2 of the same model on the CPU (the 4
+     16 kHz files and 12 of the 48 kHz ones), ``run_predict --mode
+     predict_dir`` within 1e-5 of the default-precision pass; the trained
+     NISQA_DE weights at 80 mels over phase 10's pairs at "highest" (two
+     launches per cold batch, within 1e-3 of the CPU on 4 pairs); then one
+     epoch of ``train_nisqa_cnn_sa_ap.yaml`` at 80 mels from the host fill
+     (one launch per train step) and resident (one per build chunk), plus
+     one per cold validation batch.
 
 The last two lines are a JSON record of the kernel and
 ``{"ok": true, "device": {...}}``.
@@ -157,6 +177,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import hashlib
 import io
 import json
 import math
@@ -228,29 +249,45 @@ def hgmma_count(lib_path: str) -> int:
     return sum("HGMMA" in line for line in r.stdout.splitlines())
 
 
+def case_inputs(g_ms, sr: int, n: int, rng):
+    """The constants of ``g_ms``'s front-end at ``sr`` and ``n`` seeded
+    PCM16-valued float32 frame rows, on the card."""
+    from nisqa_tpu_torch.data.pipeline import front_end_consts
+
+    c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(g_ms, sr, "i16").items()}
+    frames = np.clip(np.round(rng.standard_normal((n, c["w_re"].shape[0])) * 3000), -32768, 32767)
+    return c, torch.from_numpy(frames.astype(np.float32)).cuda()
+
+
+def out_sha256(out) -> str:
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
 def kernel_case(geometry: str, g_ms, sr: int, n: int, modes, reps: int, rng, card: str):
     """``fused_dft_mel`` against ``dft_mel_reference`` on the card at ``n``
     frame rows of ``sr`` under ``g_ms``'s front-end, in each of ``modes``
-    ("exact", "fast"): the error, a bitwise repeat, CUDA-event times of
-    both (median of ``reps``, kernel and twin in turns) and the bound.
-    Returns the rows of results."""
-    from nisqa_tpu_torch.data.pipeline import front_end_consts, matmul_precision
-    from nisqa_tpu_torch.ops.dft_mel import (dft_mel_reference, fused_dft_mel, plan_grid,
-                                             prepare_consts)
+    ("exact", "fast"): the error, a bitwise repeat, the output's sha256,
+    CUDA-event times of both (median of ``reps``, kernel and twin in turns)
+    and the bound. Returns the rows of results."""
+    from nisqa_tpu_torch.data.pipeline import matmul_precision
+    from nisqa_tpu_torch.ops.dft_mel import (MEL_CHUNK, dft_mel_reference, fused_dft_mel,
+                                             plan_grid, prepare_consts)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    c = {k: torch.from_numpy(v).cuda() for k, v in front_end_consts(g_ms, sr, "i16").items()}
+    c, frames = case_inputs(g_ms, sr, n, rng)
     span, k = c["w_re"].shape
     m = c["fb_t"].shape[1]
-    frames = np.clip(np.round(rng.standard_normal((n, span)) * 3000), -32768, 32767)
-    frames = torch.from_numpy(frames.astype(np.float32)).cuda()
     # the work the function needs: the DFT's re and im products over the K
-    # kept bins, and the mel step over each 64-bin tile's band [m_lo, m_hi)
-    # only (fb is zero elsewhere; tiles with an empty band have none)
-    tiles = prepare_consts(c["w_re"], c["w_im"], c["fb_t"], True)["tiles"].cpu()
-    n_tiles = len(tiles)
+    # kept bins once, and the mel step over each 64-bin tile's band
+    # [m_lo, m_hi) only (fb is zero elsewhere; tiles with an empty band have
+    # none). Over 64 bands the chunked plan clips each band to its chunk,
+    # so its band-rows are the same; the DFT tiles a chunk re-runs are the
+    # kernel's cost, not the function's
+    kc = prepare_consts(c["w_re"], c["w_im"], c["fb_t"], True)
+    n_tiles, rows = len(kc["tiles"]), kc["chunk_tiles"].cpu()
+    chunks = len(kc["chunk_start"]) - 1
     dft_flop = 4 * n * span * k
-    mel_flop = 2 * n * 64 * int((tiles[:, 2] - tiles[:, 1]).sum())
+    mel_flop = 2 * n * 64 * int((rows[:, 2] - rows[:, 1]).sum())
     flop = dft_flop + mel_flop
     iters = 1 if n >= 10_000 else 20
     results = []
@@ -266,6 +303,7 @@ def kernel_case(geometry: str, g_ms, sr: int, n: int, modes, reps: int, rng, car
             abs_err = (out - ref).abs().max().item()
             rel_err = abs_err / ref.abs().max().item()
             repeat_equal = bool(torch.equal(out, again))
+            sha = out_sha256(out)
             del out, again, ref
             k_ms, t_ms = [], []
             for _ in range(reps):  # alternate kernel and twin
@@ -279,10 +317,11 @@ def kernel_case(geometry: str, g_ms, sr: int, n: int, modes, reps: int, rng, car
         ops_s = (dft_flop / BF16_PEAK if bf16 else 3 * dft_flop / TF32_PEAK) + mel_flop / FP32_PEAK
         io_bytes = n * span * (2 if bf16 else 4) + (2 * span * k + k * m + n * m) * 4
         bound_ms = 1e3 * max(ops_s, io_bytes / HBM_RATE)
-        row_tiles, splits, _ = plan_grid(n, n_tiles, sms)
+        row_tiles, splits, _ = plan_grid(n, n_tiles, sms, chunks)
         row = {"geometry": geometry, "sr": sr, "N": n, "span": span, "K": k, "M": m, "mode": mode,
-               "grid": [row_tiles, splits], "max_abs_err": abs_err, "rel_err": rel_err,
-               "bound": bound, "repeat_bitwise_equal": repeat_equal,
+               "mel_chunks": chunks, "tiles": n_tiles, "tile_runs": len(rows),
+               "grid": [row_tiles * chunks, splits], "max_abs_err": abs_err, "rel_err": rel_err,
+               "bound": bound, "repeat_bitwise_equal": repeat_equal, "sha256": sha,
                "operations": flop, "dft_operations": dft_flop,
                "kernel_ms": kernel_ms, "twin_ms": twin_ms,
                "kernel_tflops": flop / kernel_ms / 1e9, "twin_tflops": flop / twin_ms / 1e9,
@@ -299,28 +338,73 @@ def kernel_case(geometry: str, g_ms, sr: int, n: int, modes, reps: int, rng, car
     return results
 
 
-def kernel_vs_twin(seed: int, reps: int, card: str):
-    """Phase 3. Returns (rows of results, the main shape's row by mode, the
-    TTS shape's row by mode)."""
+def kernel_cases():
+    """Phase 3's (geometry, MsConfig, sr, N): the main path's shapes, then
+    44.1 kHz (a 882-sample span whose rows the wrapper re-pads to the
+    16-byte stride the TMA wants), the TTS path's K = 768 at its largest
+    bucket and at a ragged N that splits K; then 80 and 128 mel bands (two
+    chunks of the kernel's 64-band tile) at the 48 and 16 kHz main shapes,
+    and at N 43 (split K over two chunks)."""
     from nisqa_tpu_torch.data.pipeline import MsConfig
 
     ms, tts = MsConfig(YAML_GEOMETRY), MsConfig(TTS_GEOMETRY)
     n_main = BATCH * ms.frames_for_bucket(ms.max_segments)  # 32 x 5,211 = 166,752
     n_small = BATCH * ms.frames_for_bucket(ms.buckets()[0])  # 32 x 663 = 21,216
     n_tts = TTS_BATCH * tts.frames_for_bucket(tts.max_segments)  # 8 x 6,014 = 48,112
-    rng = np.random.default_rng(seed)
-    results = []
-    # the main path's shapes, then 44.1 kHz: a 882-sample span whose rows the
-    # wrapper re-pads to the 16-byte stride the TMA wants; then the TTS
-    # path's K = 768 at its largest bucket and at a ragged N that splits K
     cases = [("yaml", ms, 48000, n_main), ("yaml", ms, 48000, n_small), ("yaml", ms, 48000, 43),
              ("yaml", ms, 16000, n_main), ("yaml", ms, 44100, 4000),
              ("tts", tts, 48000, n_tts), ("tts", tts, 48000, 1001)]
-    for geometry, g_ms, sr, n in cases:
-        results += kernel_case(geometry, g_ms, sr, n, ("exact", "fast"), reps, rng, card)
-    main = {r["mode"]: r for r in results if r["sr"] == 48000 and r["N"] == n_main}
-    tts_main = {r["mode"]: r for r in results if r["N"] == n_tts}
-    return results, main, tts_main
+    for m in (80, 128):
+        g = MsConfig({**YAML_GEOMETRY, "ms_n_mels": m})
+        cases += [(f"yaml m{m}", g, 48000, n_main), (f"yaml m{m}", g, 16000, n_main)]
+    cases.append(("yaml m80", MsConfig({**YAML_GEOMETRY, "ms_n_mels": 80}), 48000, 43))
+    return cases
+
+
+def case_rng(seed: int, sr: int, n: int, m: int):
+    """Phase 3's frames of one case: the same for every run and checkout."""
+    return np.random.default_rng([seed, sr, n, m])
+
+
+def kernel_vs_twin(seed: int, reps: int, card: str):
+    """Phase 3. Returns (rows of results, the main shape's row by mode, the
+    TTS shape's row by mode, the 80- and 128-band main shapes' rows by
+    (M, sr, mode))."""
+    results = []
+    for geometry, g_ms, sr, n in kernel_cases():
+        results += kernel_case(geometry, g_ms, sr, n, ("exact", "fast"), reps,
+                               case_rng(seed, sr, n, g_ms.n_mels), card)
+    n_main = max(r["N"] for r in results)
+    main = {r["mode"]: r for r in results if r["sr"] == 48000 and r["N"] == n_main and r["M"] == 48}
+    tts_main = {r["mode"]: r for r in results if r["geometry"] == "tts" and r["N"] > 10_000}
+    wide = {(r["M"], r["sr"], r["mode"]): r for r in results if r["M"] > 64 and r["N"] == n_main}
+    return results, main, tts_main, wide
+
+
+def kernel_hashes(seed: int, reps: int) -> dict:
+    """{case: {"sha256": of ``fused_dft_mel``'s output, "ms": its median
+    CUDA-event time over ``reps``}} at phase 3's shapes of up to 64 mel
+    bands, both modes, on phase 3's inputs. It calls only what every
+    version of the port has (``front_end_consts``, ``fused_dft_mel``), so
+    the same script can hash and time an older checkout's kernel: ``python
+    -c 'import runpy, sys; sys.path.insert(0, "OLD"); sys.argv[1:] =
+    ["--kernel-hashes"]; runpy.run_path("chip_smoke.py", run_name="__main__")'``."""
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+
+    out = {}
+    for geometry, g_ms, sr, n in kernel_cases():
+        if g_ms.n_mels > 64:
+            continue
+        c, frames = case_inputs(g_ms, sr, n, case_rng(seed, sr, n, g_ms.n_mels))
+        for mode in ("exact", "fast"):
+            bf16 = mode == "fast"
+            args = (frames.to(torch.bfloat16) if bf16 else frames, c["w_re"], c["w_im"], c["fb_t"])
+            sha = out_sha256(fused_dft_mel(*args, bf16=bf16))
+            iters = 1 if n >= 10_000 else 20
+            ms = [event_ms(lambda: fused_dft_mel(*args, bf16=bf16), iters) for _ in range(reps)]
+            out[f"{geometry} {sr} Hz N {n} M {g_ms.n_mels} {mode}"] = {
+                "sha256": sha, "ms": float(np.median(ms))}
+    return out
 
 
 def model_golden(name: str):
@@ -520,16 +604,17 @@ def main_path(tar: str, paths, audio_s: float, card: str):
     return launches, y_cli
 
 
-def serving(tar: str, paths, audio_s: float, card: str, paths_ref=None, precision=None):
-    """Phase 6 (and phase 10's regimes, with ``paths_ref``): the serving
-    engine through ``load_predictor`` at bs 32, at ``precision`` (None: the
-    engine's default). Each cold batch launches the kernel once per end.
-    Returns {regime: kernel launches in its pass}."""
+def serving(tar: str, paths, audio_s: float, card: str, paths_ref=None, precision=None,
+            label=None):
+    """Phase 6 (and phase 10's regimes, with ``paths_ref``; phase 17's, with
+    ``label``): the serving engine through ``load_predictor`` at bs 32, at
+    ``precision`` (None: the engine's default). Each cold batch launches
+    the kernel once per end. Returns {regime: kernel launches in its pass}."""
     import nisqa_tpu_torch
     from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
     from nisqa_tpu_torch.tools.measure import idle_share
 
-    label = "serving" if paths_ref is None else f"de serving at {precision!r}"
+    label = label or ("serving" if paths_ref is None else f"de serving at {precision!r}")
     unit = "audio-s/s" if paths_ref is None else "degraded audio-s/s"
     ends = 1 if paths_ref is None else 2
 
@@ -1416,6 +1501,125 @@ def training(tmp: str, dim_tar: str, paths, reps: int, card: str):
     return launches, build_rows
 
 
+def eighty_mels(tmp: str, paths, audio_s: float, card: str):
+    """Phase 17: a seeded NISQA_DIM at 80 mel bands (two chunks of the
+    kernel's 64-band tile) over phase 5's corpus: every serving regime of
+    phase 6 at "highest"; cold passes at "highest" and at the default
+    precision, one launch per batch, held to the same model on the CPU
+    over the 16 kHz files and 12 of the 48 kHz ones (1e-3 and 1e-2), and
+    ``run_predict --mode predict_dir`` equal to the default-precision pass;
+    the trained NISQA_DE weights at 80 mels (AdaptCNN takes any height)
+    over phase 10's pairs at "highest", two launches per cold batch, held
+    to the CPU on 4 pairs (1e-3); then one epoch of
+    ``train_nisqa_cnn_sa_ap.yaml`` at 80 mels from the host fill (a launch
+    per step) and resident (a launch per build chunk), plus the cold
+    validation batches. Returns {pass: kernel launches}."""
+    import nisqa_tpu_torch
+    from nisqa_tpu_torch import run_predict
+    from nisqa_tpu_torch.data.pipeline import matmul_precision
+    from nisqa_tpu_torch.ops.dft_mel import fused_dft_mel
+    from nisqa_tpu_torch.tools.corpus import MEL80_GEOMETRY
+
+    tar = golden_tar("g2_dim", MEL80_GEOMETRY, os.path.join(tmp, "nisqa_dim80.tar"),
+                     "NISQA_DIM_80", seed=80)
+    launches = {f"m80_{k}": v for k, v in serving(tar, paths, audio_s, card, precision="highest",
+                                                   label="80 mels serving").items()}
+    subset = [p for p in paths if "_16k_" in p] + [p for p in paths if "_48k_" in p][:12]
+    with matmul_precision("highest"):
+        y_cpu = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, tr_device="cpu",
+                                               precision="highest")(subset)
+    idx = [paths.index(p) for p in subset]
+    ys = {}
+    for precision, bound in (("highest", PASS_BOUND), ("default", DEFAULT_PASS_BOUND)):
+        predict = nisqa_tpu_torch.load_predictor(tar, batch_size=BATCH, precision=precision,
+                                                 cache_mb=0)
+        n_batches = len(predict.engine.plan(paths))
+        fused_dft_mel.LAUNCHES = 0
+        y = ys[precision] = predict(paths)
+        torch.cuda.synchronize()
+        n = launches[f"m80_cold_{precision}"] = fused_dft_mel.LAUNCHES
+        err = float(np.abs(y[idx] - y_cpu).max())
+        print(f"80 mels cold pass at {precision!r}: {y.shape} predictions, fused_dft_mel "
+              f"launches={n} for {n_batches} batches; max_abs_diff vs the CPU over {len(subset)} "
+              f"files (4 at 16 kHz) {err:.3e} (bound {bound}) on {card}", flush=True)
+        check(bool(np.isfinite(y).all()) and y.shape == (len(paths), 5), f"80 mels: {y.shape}")
+        check(n == n_batches, f"80 mels at {precision!r}: {n} launches for {n_batches} batches")
+        check(err <= bound, f"80 mels at {precision!r}: off the CPU by {err}")
+        del predict
+
+    # the CLI's predict_dir (the checkpoint sets no precision: the default)
+    corpus = os.path.dirname(paths[0])
+    out_dir = os.path.join(tmp, "m80_predict_dir")
+    os.makedirs(out_dir)
+    fused_dft_mel.LAUNCHES = 0
+    runner = run_predict.main(["--mode", "predict_dir", "--pretrained_model", tar, "--data_dir",
+                               corpus, "--output_dir", out_dir, "--bs", str(BATCH)])
+    torch.cuda.synchronize()
+    n = launches["m80_predict_dir"] = fused_dft_mel.LAUNCHES
+    with open(os.path.join(out_dir, "NISQA_results.csv"), newline="") as f:
+        table = list(csv.DictReader(f))
+    check([r["deg"] for r in table] == [os.path.basename(p) for p in paths], "80 mels: row order")
+    y_cli = np.array([[float(r[c]) for c in ("mos_pred", "noi_pred", "dis_pred", "col_pred",
+                                             "loud_pred")] for r in table])
+    diff = float(np.abs(y_cli - ys["default"]).max())
+    print(f"80 mels run_predict predict_dir: {len(table)} files, fused_dft_mel launches={n}, "
+          f"max_abs_diff vs the default-precision pass {diff} (bound {SERVE_BOUND})", flush=True)
+    check(n == len(runner.engine.plan(paths)) and diff <= SERVE_BOUND,
+          f"80 mels predict_dir: {n} launches, off by {diff}")
+    del runner
+
+    # NISQA_DE at 80 mels over phase 10's pairs: two launches per cold batch
+    ckpt = torch.load(DE_TAR, map_location="cpu", weights_only=False)
+    ckpt["args"] = {**ckpt["args"], "ms_n_mels": 80}
+    de_tar = os.path.join(tmp, "de_trained_m80.tar")
+    torch.save(ckpt, de_tar)
+    de_dir = os.path.join(tmp, "de_wavs")
+    with open(os.path.join(de_dir, "pairs.csv"), newline="") as f:
+        pairs = [(os.path.join(de_dir, r["deg"]), os.path.join(de_dir, r["ref"]))
+                 for r in csv.DictReader(f)]
+    deg, ref = [p[0] for p in pairs], [p[1] for p in pairs]
+    predict = nisqa_tpu_torch.load_predictor(de_tar, batch_size=BATCH, precision="highest",
+                                             cache_mb=0)
+    n_batches = len(predict.engine.plan(deg, ref))
+    fused_dft_mel.LAUNCHES = 0
+    y_de = predict(deg, ref)
+    torch.cuda.synchronize()
+    n = launches["m80_de_cold_highest"] = fused_dft_mel.LAUNCHES
+    idx = [0, 1, len(deg) - 2, len(deg) - 1]
+    with matmul_precision("highest"):
+        y_de_cpu = nisqa_tpu_torch.load_predictor(de_tar, batch_size=BATCH, tr_device="cpu",
+                                                  precision="highest")(
+            [deg[i] for i in idx], [ref[i] for i in idx])
+    err = float(np.abs(y_de[idx] - y_de_cpu).max())
+    print(f"80 mels NISQA_DE cold pass at 'highest': {len(deg)} pairs, fused_dft_mel launches={n} "
+          f"for {n_batches} batches x 2 ends; max_abs_diff vs the CPU over 4 pairs {err:.3e} "
+          f"(bound {PASS_BOUND}) on {card}", flush=True)
+    check(bool(np.isfinite(y_de).all()) and n == 2 * n_batches,
+          f"80 mels DE: {n} launches for {n_batches} batches")
+    check(err <= PASS_BOUND, f"80 mels DE: off the CPU by {err}")
+    del predict
+
+    # training: corpus holds phase 11's train.csv
+    for mem in (False, True):
+        label = f"train NISQA at 80 mels, {'resident' if mem else 'host fill'}"
+        out = os.path.join(tmp, f"train_m80_{'resident' if mem else 'host'}")
+        os.makedirs(out)
+        cfg = train_config("train_nisqa_cnn_sa_ap.yaml", corpus, out, "train.csv",
+                           csv_deg="filepath_deg", tr_epochs=1, tr_ds_to_memory=mem, ms_n_mels=80)
+        runner, n, _, run_dir, _ = run_training(cfg, f"{label} (1 epoch, bs 32)", card)
+        eng = runner.train_engine
+        n_val = len(runner.engine.plan(runner.ds_val.paths()))
+        work = corpus_report(eng, label, card) if mem else eng.steps
+        check(bool(eng._corpus) == mem, f"{label}: device corpus {bool(eng._corpus)}")
+        check(n == work + n_val, f"{label}: {n} launches for {work} "
+              f"{'build chunks' if mem else 'train steps'} and {n_val} cold validation batches")
+        check_tars(run_dir, 1, label)
+        launches[f"train_m80_{'resident' if mem else 'host'}_1_epoch"] = n
+        del runner, eng
+        torch.cuda.empty_cache()
+    return launches
+
+
 @contextlib.contextmanager
 def cudnn_deterministic():
     prev = torch.backends.cudnn.deterministic
@@ -1935,16 +2139,33 @@ def import_check():
           flush=True)
 
 
+def wide_fields(wide, m: int, sr: int) -> dict:
+    """The kernel record's fields of phase 3's main shape at ``m`` bands and ``sr``."""
+    fast, exact = wide[m, sr, "fast"], wide[m, sr, "exact"]
+    return {"shape": {k: fast[k] for k in ("sr", "N", "span", "K", "M", "mel_chunks", "tile_runs")},
+            "ms": fast["kernel_ms"], "plain_ms": fast["twin_ms"], "bound_ms": fast["bound_ms"],
+            "bound_by": fast["bound_by"], "exact_ms": exact["kernel_ms"],
+            "exact_plain_ms": exact["twin_ms"], "exact_bound_ms": exact["bound_ms"],
+            "exact_bound_by": exact["bound_by"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every generated input")
     ap.add_argument("--reps", type=int, default=5, help="timed repetitions per kernel case")
     ap.add_argument("--dp-worker", metavar="JOB", help=argparse.SUPPRESS)  # a rank of phase 12
+    ap.add_argument("--kernel-hashes", action="store_true",
+                    help="only print the sha256 of the kernel's outputs at phase 3's shapes of "
+                         "up to 64 mel bands and the kernel's times (kernel_hashes)")
     opts = ap.parse_args(argv)
     if opts.dp_worker:
         return dp_worker(opts.dp_worker)
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available: chip_smoke.py runs on a CUDA card only")
+    if opts.kernel_hashes:
+        print(card_line(), flush=True)
+        print(json.dumps(kernel_hashes(opts.seed, opts.reps), sort_keys=True), flush=True)
+        return
     sys.path.insert(0, REPO)
     from nisqa_tpu_torch.ops import _build
 
@@ -1966,7 +2187,7 @@ def main(argv=None):
     check(n_hgmma > 0, "no HGMMA instruction in the kernel library: the tensor cores are unused")
 
     # 3-12
-    results, main, tts = kernel_vs_twin(opts.seed, opts.reps, card)
+    results, main, tts, wide = kernel_vs_twin(opts.seed, opts.reps, card)
     model_golden("g2_dim")
     model_golden("g3_tts")
     with tempfile.TemporaryDirectory(prefix="nisqa_smoke_") as tmp:
@@ -1985,6 +2206,7 @@ def main(argv=None):
                                                  opts.reps, card)
         tool_launches, tool_row = tools_phase(tmp, opts.reps, card)
         parity_launches = parity_phase(tmp, card)
+        m80_launches = eighty_mels(tmp, paths, audio_s, card)
     entry_launches, entry_rows = entry_points(opts.reps, card)
     import_check()  # phase 13, last: it covers the imports of phases 14 to 16
 
@@ -2014,6 +2236,10 @@ def main(argv=None):
         "tts_exact_plain_ms": tts["exact"]["twin_ms"],
         "tts_exact_bound_ms": tts["exact"]["bound_ms"],
         "tts_exact_bound_by": tts["exact"]["bound_by"],
+        # phase 3 over 64 mel bands: m80 / m128 at 48 kHz, m80_16k / m128_16k at 16 kHz
+        **{f"m{m}{'' if sr == 48000 else '_16k'}_{key}": value
+           for m in (80, 128) for sr in (48000, 16000)
+           for key, value in wide_fields(wide, m, sr).items()},
         # the device corpus's build: one 64-row chunk of the 48 kHz group, exact mode
         "corpus_build_shape": {k: build_rows[0][k] for k in ("sr", "N", "span", "K", "M")},
         "corpus_build_ms": build_rows[0]["kernel_ms"],
@@ -2040,7 +2266,8 @@ def main(argv=None):
         "dryrun_bound_by": entry_rows[0]["bound_by"],
         "launches_by_pass": {"predict_dir": launches, **serving_launches,
                              "tts_predict_dir": tts_launches, **csv_launches, **de_launches,
-                             **train_launches, **tool_launches, **parity_launches},
+                             **train_launches, **tool_launches, **parity_launches,
+                             **m80_launches},
         # phases 12 and 16: per rank
         "launches_by_rank": {**dp_launches, **entry_launches},
     }]}

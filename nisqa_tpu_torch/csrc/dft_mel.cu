@@ -14,8 +14,13 @@
 //   * fast mode: w in bf16; exact mode: w_hi / w_lo in float32, the TF32
 //     split of w (hi = rna_tf32(w), lo = rna_tf32(w - hi));
 //   * fb (Kp, M) float32, zero rows for the padding;
-//   * tiles (T, 3) int32: (K tile, m_lo, m_hi) for every 64-bin K tile whose
-//     filterbank rows are nonzero somewhere, [m_lo, m_hi) their band range.
+//   * the chunked plan: the mel bands in chunks of MEL_CHUNK = 64, chunk c
+//     holding bands [64c, min(64c + 64, M)); chunk_tiles (T', 4) int32 rows
+//     (K tile, m_lo, m_hi, t), chunk c's at chunk_start[c] .. chunk_start[c+1]:
+//     every 64-bin K tile whose filterbank rows are nonzero somewhere in
+//     the chunk, in K order, [m_lo, m_hi) its band range clipped to the
+//     chunk, t its index in the one-chunk list of such tiles. Up to 64
+//     bands there is one chunk and the plan is that list.
 //
 // What bounds it on an H100: each block re-reads its frame rows once per K
 // tile, and every w tile is read once per row tile. At 48 kHz (span 960,
@@ -52,13 +57,27 @@
 //     then the mel step in float32 FFMA over the tile's band range
 //     [m_lo, m_hi) only (fb is zero elsewhere, so this is exact); a quad of
 //     lanes holding one row reduces with two xor shuffles in a fixed order,
-//     and one owner lane per (row, m) adds into a (BM, M) shared tile;
+//     and one owner lane per (row, m) adds into a (BM, min(M, 64)) shared
+//     tile of the block's mel chunk. The tile is no wider than M needs: on
+//     an H100, a tile kept at 64 columns for M = 48 (row stride 64 or 65)
+//     made exact mode 4-12% slower at the main shape (PERF.md, section 6);
+//   * any number of mel bands M: a block owns (row tile, mel chunk), so the
+//     shared tile and the ring stop growing at 64 bands. The chunk is
+//     folded into blockIdx.x beside the row tile (x = row tile * chunks +
+//     chunk) rather than given a grid dimension of its own: the chunks of
+//     one row tile then run side by side and read the same frame rows
+//     while they are in L2. A chunk re-runs the DFT of the K tiles whose
+//     band crosses its edge (at 48 kHz and 80 bands, 29 tile runs a row
+//     tile against 27). Every (row, band) sums the same bins in the same
+//     tile and quad order as one chunk would, so the bits do not depend on
+//     the chunking;
 //   * K tiles with an empty band are not in the tile list: skipped, DFT
 //     included;
-//   * small N: the grid is (row tiles, splits); split s takes a contiguous
-//     run of the tile list and writes its partial mel to scratch[s], and
-//     sum_splits_kernel adds the splits in order. No atomics anywhere: the
-//     output is the same bits run to run.
+//   * small N: the grid is (row tiles x chunks, splits); split s takes the
+//     tiles t in a contiguous run [s * per, s * per + per) of the one-chunk
+//     list (each chunk those of its rows, possibly none) and writes its
+//     partial mel to scratch[s], and sum_splits_kernel adds the splits in
+//     order. No atomics anywhere: the output is the same bits run to run.
 
 #include <cstdint>
 
@@ -79,7 +98,7 @@ constexpr int ROW_BYTES = 128;             // one 128-byte swizzle row per tile 
 constexpr int A_BYTES = BM * ROW_BYTES;    // 16 KB
 constexpr int B_BYTES = BN * ROW_BYTES;    // 16 KB
 constexpr int WG_A_BYTES = 64 * ROW_BYTES; // one consumer warpgroup's rows
-constexpr int MAX_M = 64;
+constexpr int MEL_CHUNK = 64;              // mel bands per block
 constexpr size_t kMaxSmem = 232448;        // H100: 227 KB of dynamic shared memory per block
 
 // Fast mode: bf16, 64 span samples per chunk; slot = A | B.
@@ -93,11 +112,14 @@ struct Mode {
   static constexpr int K_STEPS = ROW_BYTES / 32;  // wgmma k16 (bf16) or k8 (tf32): 32 bytes each
 };
 
+// The ring, the (BM, mel_ld) mel tile (mel_ld = min(M, MEL_CHUNK)) and the barriers.
 template <bool EXACT>
-size_t smem_bytes(int m) {
-  return 1024 + size_t(Mode<EXACT>::STAGES) * Mode<EXACT>::SLOT_BYTES + size_t(BM) * m * 4 +
+constexpr size_t smem_bytes(int mel_ld) {
+  return 1024 + size_t(Mode<EXACT>::STAGES) * Mode<EXACT>::SLOT_BYTES + size_t(BM) * mel_ld * 4 +
          2 * Mode<EXACT>::STAGES * 8;
 }
+static_assert(smem_bytes<true>(MEL_CHUNK) <= kMaxSmem && smem_bytes<false>(MEL_CHUNK) <= kMaxSmem,
+              "the ring and the widest mel tile must fit one block's shared memory");
 
 // ---- PTX wrappers -----------------------------------------------------------
 
@@ -217,22 +239,34 @@ template <bool EXACT>
 __global__ void __launch_bounds__(THREADS, 1)
 dft_mel_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
                const __grid_constant__ CUtensorMap map_w_lo, const int* __restrict__ tiles,
-               int n_tiles, int tiles_per_split, const float* __restrict__ fb,
-               float* __restrict__ out, int64_t n, int span, int m) {
+               const int* __restrict__ chunk_start, int chunks, int tiles_per_split,
+               const float* __restrict__ fb, float* __restrict__ out, int64_t n, int span,
+               int m) {
   using C = Mode<EXACT>;
+  const int mel_ld = min(m, MEL_CHUNK);  // the mel tile's width and row stride
   extern __shared__ uint8_t smem_raw[];
   // 1,024-byte alignment for the swizzled tiles
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* slots = smem;
-  float* mel = reinterpret_cast<float*>(slots + C::STAGES * C::SLOT_BYTES);  // [BM][m]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(mel + BM * m);                // full | empty
+  float* mel = reinterpret_cast<float*>(slots + C::STAGES * C::SLOT_BYTES);  // [BM][mel_ld]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(mel + BM * mel_ld);           // full | empty
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + C::STAGES);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = int(blockIdx.x) * BM;
-  const int t_begin = int(blockIdx.y) * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const int n_chunks = (span + C::BK - 1) / C::BK;
+  const int chunk = int(blockIdx.x % unsigned(chunks));
+  const int row0 = int(blockIdx.x / unsigned(chunks)) * BM;
+  const int c0 = chunk * MEL_CHUNK;               // the chunk's first band
+  const int cw = min(MEL_CHUNK, m - c0);          // and its width
+  int t_begin = chunk_start[chunk], t_end = chunk_start[chunk + 1];
+  if (gridDim.y > 1) {
+    // split K: this split's rows are those with t in [g0, g0 + tiles_per_split)
+    const int g0 = int(blockIdx.y) * tiles_per_split, g1 = g0 + tiles_per_split;
+    while (t_begin < t_end && tiles[4 * t_begin + 3] < g0) ++t_begin;
+    int e = t_begin;
+    while (e < t_end && tiles[4 * e + 3] < g1) ++e;
+    t_end = e;
+  }
+  const int span_chunks = (span + C::BK - 1) / C::BK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -241,7 +275,7 @@ dft_mel_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int e = threadIdx.x; e < BM * m; e += THREADS) mel[e] = 0.f;
+  for (int e = threadIdx.x; e < BM * mel_ld; e += THREADS) mel[e] = 0.f;
   __syncthreads();
 
   if (warp == PRODUCER_WARP) {
@@ -250,8 +284,8 @@ dft_mel_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       int stage = 0;
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t) {
-        const int col0 = tiles[3 * t] * BN;
-        for (int c = 0; c < n_chunks; ++c) {
+        const int col0 = tiles[4 * t] * BN;
+        for (int c = 0; c < span_chunks; ++c) {
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           const uint32_t full = full0 + 8 * stage;
           const uint32_t slot = smem_u32(slots + stage * C::SLOT_BYTES);
@@ -282,11 +316,11 @@ dft_mel_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     uint32_t phase = 0;
 
     for (int t = t_begin; t < t_end; ++t) {
-      const int kt = tiles[3 * t], m_lo = tiles[3 * t + 1], m_hi = tiles[3 * t + 2];
+      const int kt = tiles[4 * t], m_lo = tiles[4 * t + 1], m_hi = tiles[4 * t + 2];
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-      for (int c = 0; c < n_chunks; ++c) {
+      for (int c = 0; c < span_chunks; ++c) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) d[i] = 0.f;
         fence_acc(d);
@@ -355,7 +389,7 @@ dft_mel_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         float p0 = 0.f, p1 = 0.f;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          const float f = __ldg(fbq + 4 * j * m + mm);
+          const float f = __ldg(fbq + int64_t(4 * j) * m + mm);
           p0 = fmaf(mag[0][j], f, p0);
           p1 = fmaf(mag[1][j], f, p1);
         }
@@ -364,17 +398,18 @@ dft_mel_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
         p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
         if (q == (mm & 3)) {
-          mel[r_lo * m + mm] += p0;
-          mel[(r_lo + 8) * m + mm] += p1;
+          mel[r_lo * mel_ld + mm - c0] += p0;
+          mel[(r_lo + 8) * mel_ld + mm - c0] += p1;
         }
       }
     }
 
     named_barrier(1 + wg, 128);
-    float* dst = out + int64_t(blockIdx.y) * n * m;
-    for (int e = tid_wg; e < 64 * m; e += 128) {
-      const int64_t row = row0 + wg * 64 + e / m;
-      if (row < n) dst[row * m + e % m] = mel[wg * 64 * m + e];
+    float* dst = out + int64_t(blockIdx.y) * n * m + c0;
+    for (int e = tid_wg; e < 64 * cw; e += 128) {
+      const int r = wg * 64 + e / cw, col = e % cw;
+      const int64_t row = row0 + r;
+      if (row < n) dst[row * m + col] = mel[r * mel_ld + col];
     }
   }
 }
@@ -432,14 +467,13 @@ int make_map(CUtensorMap* map, const void* ptr, bool bf16, uint64_t rows, uint64
 
 template <bool EXACT>
 int launch(const void* frames, int64_t frames_ld, const void* w, const void* w_lo, int w_ld,
-           const int* tiles, int n_tiles, int tiles_per_split, int splits, const void* fb,
-           void* out, void* scratch, int64_t n, int span, int k_pad, int m,
+           const int* tiles, const int* chunk_start, int chunks, int tiles_per_split, int splits,
+           const void* fb, void* out, void* scratch, int64_t n, int span, int k_pad, int m,
            cudaStream_t stream) {
   using C = Mode<EXACT>;
-  const size_t smem = smem_bytes<EXACT>(m);
-  const int64_t row_tiles = (n + BM - 1) / BM;
-  if (smem > kMaxSmem || row_tiles > 0x7fffffff || splits > 65535 || n > 0x7fffffff)
-    return int(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<EXACT>(m < MEL_CHUNK ? m : MEL_CHUNK);
+  const int64_t blocks_x = (n + BM - 1) / BM * chunks;
+  if (blocks_x > 0x7fffffff || splits > 65535 || n > 0x7fffffff) return int(cudaErrorInvalidValue);
   CUtensorMap map_a, map_w, map_w_lo;
   int err = make_map(&map_a, frames, !EXACT, uint64_t(n), uint64_t(span), uint64_t(frames_ld), BM,
                      C::BK);
@@ -454,9 +488,9 @@ int launch(const void* frames, int64_t frames_ld, const void* w, const void* w_l
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   float* dst = static_cast<float*>(splits > 1 ? scratch : out);
-  dft_mel_kernel<EXACT><<<dim3(unsigned(row_tiles), unsigned(splits)), THREADS, smem, stream>>>(
-      map_a, map_w, map_w_lo, tiles, n_tiles, tiles_per_split, static_cast<const float*>(fb), dst,
-      n, span, m);
+  dft_mel_kernel<EXACT><<<dim3(unsigned(blocks_x), unsigned(splits)), THREADS, smem, stream>>>(
+      map_a, map_w, map_w_lo, tiles, chunk_start, chunks, tiles_per_split,
+      static_cast<const float*>(fb), dst, n, span, m);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return int(e);
   const int64_t count = n * m;
@@ -473,22 +507,26 @@ extern "C" {
 // Launches the kernel (and, for splits > 1, the split sum) on `stream`
 // without synchronising. frames: (n, span) with row stride frames_ld, bf16
 // in fast mode and float32 in exact mode; w / w_lo: (2 * k_pad, w_ld); fb:
-// (k_pad, m) float32; tiles: (n_tiles, 3) int32; out: (n, m) float32;
-// scratch: (splits, n, m) float32 when splits > 1. Returns 0, a
-// cudaError_t code, or a negative code of this library
+// (k_pad, m) float32; chunk_tiles: (T', 4) int32 and chunk_start: (chunks + 1)
+// int32, the chunked plan, chunks = ceil(m / 64); out: (n, m) float32;
+// scratch: (splits, n, m) float32 when splits > 1, split s taking the rows
+// whose t lies in [s * tiles_per_split, (s + 1) * tiles_per_split). Returns
+// 0, a cudaError_t code, or a negative code of this library
 // (nisqa_cuda_error_string names each).
 int nisqa_dft_mel(const void* frames, int64_t frames_ld, const void* w, const void* w_lo,
-                  int w_ld, const void* tiles, int n_tiles, int tiles_per_split, int splits,
-                  const void* fb, void* out, void* scratch, int64_t n, int span, int k_pad, int m,
-                  int exact, void* stream) {
-  if (n <= 0 || span <= 0 || span > w_ld || k_pad <= 0 || k_pad % BINS || m <= 0 || m > MAX_M ||
-      n_tiles < 0 || splits < 1 || (splits > 1 && !scratch) || (exact && !w_lo))
+                  int w_ld, const void* chunk_tiles, const void* chunk_start, int chunks,
+                  int tiles_per_split, int splits, const void* fb, void* out, void* scratch,
+                  int64_t n, int span, int k_pad, int m, int exact, void* stream) {
+  if (n <= 0 || span <= 0 || span > w_ld || k_pad <= 0 || k_pad % BINS || m <= 0 ||
+      chunks != (m + MEL_CHUNK - 1) / MEL_CHUNK || splits < 1 ||
+      (splits > 1 && (!scratch || tiles_per_split < 1)) || (exact && !w_lo))
     return int(cudaErrorInvalidValue);
-  const int* t = static_cast<const int*>(tiles);
+  const int* t = static_cast<const int*>(chunk_tiles);
+  const int* cs = static_cast<const int*>(chunk_start);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return exact ? launch<true>(frames, frames_ld, w, w_lo, w_ld, t, n_tiles, tiles_per_split,
+  return exact ? launch<true>(frames, frames_ld, w, w_lo, w_ld, t, cs, chunks, tiles_per_split,
                               splits, fb, out, scratch, n, span, k_pad, m, s)
-               : launch<false>(frames, frames_ld, w, w_lo, w_ld, t, n_tiles, tiles_per_split,
+               : launch<false>(frames, frames_ld, w, w_lo, w_ld, t, cs, chunks, tiles_per_split,
                                splits, fb, out, scratch, n, span, k_pad, m, s);
 }
 

@@ -73,7 +73,8 @@ def load_library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.nisqa_dft_mel.argtypes = [
         ptr, i64, ptr, ptr, i32,            # frames, frames_ld, w, w_lo, w_ld
-        ptr, i32, i32, i32,                 # tiles, n_tiles, tiles_per_split, splits
+        ptr, ptr, i32,                      # chunk_tiles, chunk_start, chunks
+        i32, i32,                           # tiles_per_split, splits
         ptr, ptr, ptr,                      # fb, out, scratch
         i64, i32, i32, i32, i32, ptr,       # n, span, k_pad, m, exact, stream
     ]

@@ -18,8 +18,9 @@ counterpart of the TPU kernel's multi-pass ``Precision.HIGHEST``.
 
 The kernel reads its constants in its own layout, made by
 ``prepare_consts`` once per constant set (cached on the tensors' identity
-and counted in ``fused_dft_mel.PREPARATIONS``), and splits the K loop
-across blocks for small N (``plan_grid``).
+and counted in ``fused_dft_mel.PREPARATIONS``), takes the mel bands in
+chunks of ``MEL_CHUNK`` (``chunk_tiles``: any M, one chunk up to 64), and
+splits the K loop across blocks for small N (``plan_grid``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 ROWS_PER_BLOCK = 128    # frame rows per block (csrc/dft_mel.cu BM)
 BINS_PER_TILE = 64      # DFT bins per K tile (csrc/dft_mel.cu BINS)
 SPAN_ALIGN = 64         # w's span padding: one bf16 chunk of 128 bytes
-MAX_MELS = 64           # largest M the kernel's shared mel tile holds
+MEL_CHUNK = 64          # mel bands per block: the kernel's shared mel tile (BM, 64)
+INT_MAX = 2 ** 31 - 1   # the kernel's row and band indices and its grid's x are 32-bit
 
 
 def dft_mel_reference(frames, w_re, w_im, fb, bf16: bool = False):
@@ -69,6 +71,27 @@ def band_tiles(fb):
     return torch.tensor(rows, dtype=torch.int32).view(-1, 3)
 
 
+def chunk_tiles(tiles, m: int):
+    """Band tiles (T, 3) over M mel bands -> the kernel's chunked plan:
+    (int32 (T', 4) rows (K tile, m_lo, m_hi, t), int32 (C + 1,) offsets).
+
+    Chunk c holds bands [64c, min(64c + 64, M)); its rows are
+    ``rows[offsets[c]:offsets[c + 1]]``: the tiles whose band meets the
+    chunk, in K order, their band clipped to it, and ``t`` each tile's index
+    in ``tiles`` (split K partitions ``t``, so a band's partial sums group as
+    with one chunk). A chunk that no tile touches has no rows; its columns
+    come out zero. Up to 64 bands this is ``tiles`` itself, with t = 0..T-1.
+    """
+    rows, starts = [], [0]
+    for c0 in range(0, m, MEL_CHUNK):
+        c1 = min(c0 + MEL_CHUNK, m)
+        rows += [(kt, max(lo, c0), min(hi, c1), t)
+                 for t, (kt, lo, hi) in enumerate(tiles.tolist()) if lo < c1 and hi > c0]
+        starts.append(len(rows))
+    return (torch.tensor(rows, dtype=torch.int32).view(-1, 4),
+            torch.tensor(starts, dtype=torch.int32))
+
+
 def prepare_consts(w_re, w_im, fb, bf16: bool):
     """The kernel's layout of the constants, in plain PyTorch.
 
@@ -78,7 +101,10 @@ def prepare_consts(w_re, w_im, fb, bf16: bool):
       64) with zeros: bf16 in fast mode, the TF32 ``hi`` in exact mode, with
       ``w_lo`` beside it;
     * ``fb`` (Kp, M) float32 with zero rows for the padded bins;
-    * ``tiles`` (T, 3) int32 on the device, from :func:`band_tiles`.
+    * ``tiles`` (T, 3) int32 on the host, from :func:`band_tiles` (the
+      split planner counts them), and the chunked plan the kernel reads,
+      ``chunk_tiles`` (T', 4) / ``chunk_start`` (C + 1,) int32 on the
+      device, from :func:`chunk_tiles`.
 
     Padded bins have zero weights (|0| = 0) and zero filter rows, and skipped
     tiles and bands multiply finite magnitudes by fb's zeros: all exact.
@@ -93,7 +119,10 @@ def prepare_consts(w_re, w_im, fb, bf16: bool):
     w = w.view(2 * kp, sp)
     fb_p = torch.zeros((kp, m), dtype=torch.float32, device=fb.device)
     fb_p[:k] = fb
-    out = {"fb": fb_p, "tiles": band_tiles(fb_p).to(fb.device), "k_pad": kp}
+    tiles = band_tiles(fb_p)
+    rows, starts = chunk_tiles(tiles, m)
+    out = {"fb": fb_p, "tiles": tiles, "chunk_tiles": rows.to(fb.device),
+           "chunk_start": starts.to(fb.device), "k_pad": kp}
     if bf16:
         out["w"] = w.to(torch.bfloat16)
     else:
@@ -101,18 +130,35 @@ def prepare_consts(w_re, w_im, fb, bf16: bool):
     return out
 
 
-def plan_grid(n: int, n_tiles: int, sms: int):
+def plan_grid(n: int, n_tiles: int, sms: int, chunks: int = 1):
     """(row tiles, splits, tiles per split) of a launch over ``n`` frame
-    rows and ``n_tiles`` active K tiles. Row tiles alone fill the card from
-    ``sms`` tiles up; below that the K tiles are split across
-    ``ceil(sms / row tiles)`` blocks per row tile (at most one tile each),
-    in contiguous runs, and the splits are summed in order after."""
+    rows, ``n_tiles`` active K tiles and ``chunks`` mel chunks. A block
+    owns (row tile, mel chunk); those blocks alone fill the card from
+    ``sms`` up; below that the K tiles are split across
+    ``ceil(sms / (row tiles x chunks))`` blocks each (at most one tile a
+    split), in contiguous runs of the one-chunk tile list, and the splits
+    are summed in order after."""
     row_tiles = -(-n // ROWS_PER_BLOCK)
-    splits = 1 if row_tiles >= sms or n_tiles <= 1 else min(n_tiles, -(-sms // row_tiles))
+    blocks = row_tiles * chunks
+    splits = 1 if blocks >= sms or n_tiles <= 1 else min(n_tiles, -(-sms // blocks))
     per = -(-n_tiles // splits) if n_tiles else 0
     if per:
         splits = -(-n_tiles // per)  # no empty split
     return row_tiles, splits, per
+
+
+def mel_chunks(n: int, m: int) -> int:
+    """The mel chunks of a launch over ``n`` frame rows and ``m`` bands.
+    Raises where the kernel cannot take them: it indexes rows and bands
+    with 32-bit ints, and its grid's x (row tiles x chunks) is below 2**31."""
+    chunks = -(-m // MEL_CHUNK)
+    if n > INT_MAX or m > INT_MAX:
+        raise ValueError(f"fused_dft_mel's kernel indexes rows and bands with 32-bit ints: "
+                         f"N={n}, M={m} (each must be <= {INT_MAX})")
+    if -(-n // ROWS_PER_BLOCK) * chunks > INT_MAX:
+        raise ValueError(f"fused_dft_mel's grid would have ceil(N / {ROWS_PER_BLOCK}) x "
+                         f"ceil(M / {MEL_CHUNK}) > {INT_MAX} blocks: N={n}, M={m}")
+    return chunks
 
 
 def _check(frames, w_re, w_im, fb, bf16):
@@ -173,8 +219,7 @@ def fused_dft_mel(frames, w_re, w_im, fb, bf16: bool = False):
         raise ValueError(f"fused_dft_mel runs on cuda or cpu tensors, got {frames.device}")
     n, span = frames.shape
     k, m = fb.shape
-    if m > MAX_MELS:
-        raise ValueError(f"fused_dft_mel's kernel takes M <= {MAX_MELS} mel bands, got {m}")
+    chunks = mel_chunks(n, m)
 
     from ._build import load_library
 
@@ -191,14 +236,15 @@ def fused_dft_mel(frames, w_re, w_im, fb, bf16: bool = False):
             frames = padded
         n_tiles = kc["tiles"].shape[0]
         sms = torch.cuda.get_device_properties(frames.device).multi_processor_count
-        _, splits, per = plan_grid(n, n_tiles, sms)
+        _, splits, per = plan_grid(n, n_tiles, sms, chunks)
         out = torch.empty((n, m), dtype=torch.float32, device=frames.device)
         scratch = (torch.empty((splits, n, m), dtype=torch.float32, device=frames.device)
                    if splits > 1 else None)
         w_lo = kc.get("w_lo")
         code = lib.nisqa_dft_mel(
             frames.data_ptr(), ld, kc["w"].data_ptr(), w_lo.data_ptr() if w_lo is not None else None,
-            kc["w"].shape[1], kc["tiles"].data_ptr(), n_tiles, per, splits, kc["fb"].data_ptr(),
+            kc["w"].shape[1], kc["chunk_tiles"].data_ptr(), kc["chunk_start"].data_ptr(), chunks,
+            per, splits, kc["fb"].data_ptr(),
             out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
             n, span, kc["k_pad"], m, int(not bf16),
             torch.cuda.current_stream(frames.device).cuda_stream,

@@ -4,7 +4,8 @@ The recipes are those of the JAX package's tools, written through the
 port's own ``write_wav``, so that the same seed gives the same bytes:
 
   * :func:`bench_corpus`: ``bench.py::make_corpus``, 48 kHz files of
-    3-30 s (log-uniform) of a two-tone signal with noise, seed 0;
+    3-30 s (log-uniform) of a two-tone signal with noise, seed 0 (also at
+    another rate: the same recipe sampled at ``sr``);
   * :func:`tts_corpus`: ``tools/bench_tts.py::make_corpus``, 48 kHz files
     of 10-40 s of an amplitude-modulated tone with noise, seed 3;
   * :func:`de_corpus`: ``tools/bench_de.py::make_de_corpus``, 8 s pairs at
@@ -23,7 +24,7 @@ the sample counts.
 
 :func:`golden_tar` writes a reference-format ``.tar`` from a golden's
 released weights (``sd::*``) and architecture (``meta``) at a front-end
-geometry.
+geometry, or from a seeded perturbation of those weights.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ YAML_GEOMETRY = {
 }
 # the released NISQA-TTS checkpoint's front-end
 TTS_GEOMETRY = {**YAML_GEOMETRY, "ms_fmax": 8000, "ms_seg_hop_length": 1, "ms_max_segments": 6000}
+# the yaml geometry at 80 mel bands: more than the DFT->mel kernel's 64-band tile
+MEL80_GEOMETRY = {**YAML_GEOMETRY, "ms_n_mels": 80}
 SR = 48000
 DE_SECONDS = 8.0
 
@@ -64,24 +67,25 @@ def _write(path: str, y, sr: int):
     os.replace(tmp, path)
 
 
-def bench_corpus(out_dir: str, n_files: int = 384, seed: int = 0):
-    """``bench.py``'s corpus. Returns (audio seconds, paths)."""
+def bench_corpus(out_dir: str, n_files: int = 384, seed: int = 0, sr: int = SR):
+    """``bench.py``'s corpus, sampled at ``sr`` (``bench.py``'s: 48 kHz).
+    Returns (audio seconds, paths)."""
     rng = np.random.default_rng(seed)
     os.makedirs(out_dir, exist_ok=True)
     total, paths = 0.0, []
     for i in range(n_files):
         p = os.path.join(out_dir, f"bench_{i:03d}.wav")
         dur = float(np.exp(rng.uniform(np.log(3.0), np.log(30.0))))
-        n = int(SR * dur)
+        n = int(sr * dur)
         f0 = rng.uniform(100, 300)
         noise = rng.standard_normal(n)
         if not os.path.exists(p):
-            t = np.arange(n) / SR
+            t = np.arange(n) / sr
             y = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 3.1 * f0 * t)
                  + 0.05 * noise)
-            _write(p, y.astype(np.float32), SR)
+            _write(p, y.astype(np.float32), sr)
         paths.append(p)
-        total += n / SR
+        total += n / sr
     return total, paths
 
 
@@ -168,10 +172,23 @@ def load_golden(name: str):
     return meta, sd
 
 
-def golden_tar(name: str, geometry: dict, path: str, label: str | None = None) -> str:
+def golden_tar(name: str, geometry: dict, path: str, label: str | None = None,
+               seed: int | None = None) -> str:
     """A reference-format ``.tar`` at ``path`` holding golden ``name``'s
-    weights and architecture at the front-end ``geometry``; returns ``path``."""
+    weights and architecture at the front-end ``geometry``; returns ``path``.
+
+    With ``seed``, every floating tensor of the weights is multiplied by
+    1 + 0.05 N(0, 1), drawn from ``np.random.default_rng(seed)`` in
+    state-dict order: a seeded model of the released architecture and
+    scale that is not the released one, with the same bytes on every
+    machine. (AdaptCNN's adaptive pools let NISQA_DIM's weights take any
+    mel height.)"""
     meta, sd = load_golden(name)
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        sd = {k: v * torch.from_numpy((1 + 0.05 * rng.standard_normal(tuple(v.shape)))
+                                      .astype(np.float32))
+              if v.is_floating_point() else v for k, v in sd.items()}
     model = meta["model"]
     args = {**meta["model_args"], **geometry, "model": model, "name": label or model}
     torch.save({"args": args, "model_state_dict": sd, "model_name": model}, path)

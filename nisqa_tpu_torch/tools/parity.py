@@ -17,7 +17,12 @@ on the same files:
   * ``de_trained.tar`` (``tests/goldens/de_trained.tar``) over the 96 DE
     pairs, written portably (``corpus.de_corpus(portable=True)``), at bs
     32: ``::auto`` at "default" with the front-end by precision,
-    ``::highest`` at "highest".
+    ``::highest`` at "highest";
+  * ``nisqa.tar@16k::exact``: ``nisqa.tar`` over the bench recipe sampled at
+    16 kHz (128 files, bs 32), the front-end's other main geometry (K 2,049);
+  * ``nisqa_dim80.tar::exact``: a seeded NISQA_DIM at 80 mel bands
+    (``g2_dim``'s weights perturbed from seed 80, ``corpus.golden_tar``)
+    over the bench corpus: more bands than the kernel's 64-band tile.
 
 Every key runs on a fresh predictor with ``cache_mb=0`` and 4 decode
 workers, so each pass is cold and launches the DFT->mel kernel once per
@@ -42,7 +47,7 @@ applies its drift bound against a recorded run, and fails when a recorded
 key is missing from this one.
 
 Usage: python -m nisqa_tpu_torch.tools.parity [--device cpu] [--n-bench 384]
-    [--n-tts 32] [--n-de 96] [--record PATH] [--check-record PATH]
+    [--n-tts 32] [--n-de 96] [--n-bench16k 128] [--record PATH] [--check-record PATH]
 """
 
 from __future__ import annotations
@@ -68,11 +73,14 @@ REFERENCE = os.path.join(HERE, "parity_ref.npz")
 H100_RECORD = os.path.join(HERE, "parity_h100.json")
 
 # corpus -> (files or pairs, batch size, folder under --corpus-dir): measure_parity.py's
-# sizes; the DE pairs are written portably, so not into bench_de's folder
-CORPORA = {"bench": (384, 32, "bench"), "tts": (32, 8, "bench_tts"), "de": (96, 32, "parity_de")}
-# checkpoint -> the corpus it serves
+# sizes; the DE pairs are written portably, so not into bench_de's folder; the 16 kHz
+# bench files are a third of the 48 kHz count, which keeps the pass a few seconds
+CORPORA = {"bench": (384, 32, "bench"), "tts": (32, 8, "bench_tts"), "de": (96, 32, "parity_de"),
+           "bench16k": (128, 32, "bench_16k")}
+# checkpoint -> the corpus it serves; "<tar>@16k" serves <tar> over the 16 kHz corpus
 CHECKPOINT_CORPUS = {"nisqa.tar": "bench", "nisqa_mos_only.tar": "bench",
-                     "nisqa_tts.tar": "tts", "de_trained.tar": "de"}
+                     "nisqa_tts.tar": "tts", "de_trained.tar": "de",
+                     "nisqa.tar@16k": "bench16k", "nisqa_dim80.tar": "bench"}
 # key -> (precision, fe_precision): the JAX record's keys, and "highest" for the single-ended
 KEYS = {
     "nisqa.tar::exact": ("default", "exact"),
@@ -84,11 +92,14 @@ KEYS = {
     "nisqa_tts.tar::exact": ("default", "exact"),
     "de_trained.tar::auto": ("default", None),
     "de_trained.tar::highest": ("highest", None),
+    "nisqa.tar@16k::exact": ("default", "exact"),
+    "nisqa_dim80.tar::exact": ("default", "exact"),
 }
 # tests/test_parity_regression.py's budgets, (MOS MAE below, Pearson r above), by checkpoint;
 # every "highest" key is held to the repo's 1e-3 parity invariant at "highest"
 BUDGET = {"nisqa.tar": (0.01, 0.999), "nisqa_mos_only.tar": (0.01, 0.999),
-          "nisqa_tts.tar": (1e-3, 0.9999), "de_trained.tar": (0.02, 0.999)}
+          "nisqa_tts.tar": (1e-3, 0.9999), "de_trained.tar": (0.02, 0.999),
+          "nisqa.tar@16k": (0.01, 0.999), "nisqa_dim80.tar": (0.01, 0.999)}
 HIGHEST_BUDGET = (1e-3, 0.9999)
 # the JAX gate's drift bound: MOS MAE <= 3 x recorded + 2e-4
 DRIFT_FACTOR, DRIFT_SLACK = 3.0, 2e-4
@@ -106,15 +117,19 @@ def budget_for(key: str):
 
 
 def write_checkpoints(out_dir: str) -> dict:
-    """{checkpoint name: path}: the goldens' released weights as ``.tar``
-    files at their geometries, and the trained DE ``.tar``."""
-    def tar(golden, geometry, name, label=None):
-        return corpus.golden_tar(golden, geometry, os.path.join(out_dir, name), label)
+    """{checkpoint name: path} (``CHECKPOINT_CORPUS``'s names): the goldens'
+    released weights as ``.tar`` files at their geometries, the seeded
+    80-mel NISQA_DIM, and the trained DE ``.tar``."""
+    def tar(golden, geometry, name, label=None, seed=None):
+        return corpus.golden_tar(golden, geometry, os.path.join(out_dir, name), label, seed)
 
-    return {"nisqa.tar": tar("g2_dim", corpus.YAML_GEOMETRY, "nisqa.tar"),
+    nisqa = tar("g2_dim", corpus.YAML_GEOMETRY, "nisqa.tar")
+    return {"nisqa.tar": nisqa, "nisqa.tar@16k": nisqa,
             "nisqa_mos_only.tar": tar("g1_mos_only", corpus.YAML_GEOMETRY, "nisqa_mos_only.tar"),
             "nisqa_tts.tar": tar("g3_tts", corpus.TTS_GEOMETRY, "nisqa_tts.tar", "NISQA_TTS"),
-            "de_trained.tar": DE_TAR}
+            "de_trained.tar": DE_TAR,
+            "nisqa_dim80.tar": tar("g2_dim", corpus.MEL80_GEOMETRY, "nisqa_dim80.tar",
+                                   "NISQA_DIM_80", seed=80)}
 
 
 def write_corpora(corpus_dir: str, sizes: dict) -> dict:
@@ -125,7 +140,9 @@ def write_corpora(corpus_dir: str, sizes: dict) -> dict:
     _, bench = corpus.bench_corpus(folder["bench"], sizes["bench"])
     _, tts = corpus.tts_corpus(folder["tts"], sizes["tts"])
     _, deg, ref, _ = corpus.de_corpus(folder["de"], sizes["de"], portable=True)
-    return {"bench": (bench, None), "tts": (tts, None), "de": (deg, ref)}
+    _, bench16k = corpus.bench_corpus(folder["bench16k"], sizes["bench16k"], sr=16000)
+    return {"bench": (bench, None), "tts": (tts, None), "de": (deg, ref),
+            "bench16k": (bench16k, None)}
 
 
 def corpus_files(paths, paths_ref):
@@ -215,9 +232,11 @@ def parse_args(argv=None):
     ap.add_argument("--n-tts", type=int, default=CORPORA["tts"][0],
                     help="leading TTS clips compared")
     ap.add_argument("--n-de", type=int, default=CORPORA["de"][0], help="leading DE pairs compared")
+    ap.add_argument("--n-bench16k", type=int, default=CORPORA["bench16k"][0],
+                    help="leading 16 kHz bench files compared")
     ap.add_argument("--corpus-dir",
-                    help="where the corpora are written or reused, in folders bench, bench_tts "
-                         "and parity_de (default: under the temporary directory)")
+                    help="where the corpora are written or reused, in folders bench, bench_tts, "
+                         "parity_de and bench_16k (default: under the temporary directory)")
     ap.add_argument("--record", metavar="PATH", help="write the record to PATH")
     ap.add_argument("--check-record", metavar="PATH",
                     help="fail when a key drifts over 3 x its recorded MOS MAE + 2e-4, or a "
@@ -227,7 +246,8 @@ def parse_args(argv=None):
 
 def run(opts):
     """(record, {key: predictions in corpus order})."""
-    sizes = {"bench": opts.n_bench, "tts": opts.n_tts, "de": opts.n_de}
+    sizes = {"bench": opts.n_bench, "tts": opts.n_tts, "de": opts.n_de,
+             "bench16k": opts.n_bench16k}
     for name, n in sizes.items():
         if not 2 <= n <= CORPORA[name][0]:  # Pearson r needs two rows
             raise ValueError(f"--n-{name} must be in [2, {CORPORA[name][0]}], got {n}")

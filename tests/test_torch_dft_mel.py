@@ -7,9 +7,13 @@ arithmetic (3xTF32 or bf16 DFT on the interleaved K-major weights, TF32
 rounding by integer bit operations, |.| per bin, the band-limited mel step
 in the kernel's summation order) and held against the twin and the Pallas
 kernel in interpret mode. Inputs are numpy-seeded PCM16-like frames through
-the main path's constants (``front_end_consts(ms, sr, "i16")``).
+the main path's constants (``front_end_consts(ms, sr, "i16")``). Above 64
+mel bands the kernel takes the bands in chunks of 64 (``chunk_tiles``): the
+chunked plan is held to the one-chunk tile list it is cut from, bit for bit
+through the emulation, split K included.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -25,7 +29,13 @@ from tests.test_torch_front_end import YAML_MS
 TTS_MS = {**YAML_MS, "ms_fmax": 8000, "ms_seg_hop_length": 1, "ms_max_segments": 6000}
 GEOMS = [("tiny8k", TINY_ARGS, 8000), ("yaml48k", YAML_MS, 48000), ("yaml16k", YAML_MS, 16000),
          ("tts48k", TTS_MS, 48000)]
+# 80 mel bands: two chunks of the kernel's shared mel tile
+GEOMS += [(f"{gid}-m80", {**args, "ms_n_mels": 80}, sr) for gid, args, sr in GEOMS[:3]]
 GEOM_IDS = [g[0] for g in GEOMS]
+# the chunked plan at 80, 128 and 200 bands (200: four chunks, the last of 8 bands)
+CHUNK_GEOMS = [(f"{gid}-m{m}", {**args, "ms_n_mels": m}, sr)
+               for gid, args, sr in GEOMS[:3] for m in (80, 128, 200)]
+CHUNK_IDS = [g[0] for g in CHUNK_GEOMS]
 H100_SMS = 132
 EXACT_BOUND, FAST_BOUND = 1e-5, 1e-4  # relative to max|reference|, as chip_smoke.py holds the kernel
 MODES = [(False, EXACT_BOUND), (True, FAST_BOUND)]
@@ -82,8 +92,31 @@ def mel_step(mag, fb, tiles):
     return out
 
 
-def emulate_kernel(frames, kc, bf16, passes=3):
-    return mel_step(emulate_dft(frames, kc, bf16, passes), kc["fb"], kc["tiles"].tolist())
+def split_mel_step(mag, fb, rows, per):
+    """The kernel's mel step over chunked-plan rows (K tile, m_lo, m_hi, t)
+    under split K: split s takes the rows with t in [s * per, s * per + per)
+    (per 0: one split, every row), and the splits' partial mels are added
+    in split order (sum_splits_kernel)."""
+    if not per:
+        return mel_step(mag, fb, [r[:3] for r in rows])
+    splits = -(-(max(r[3] for r in rows) + 1) // per)
+    parts = [mel_step(mag, fb, [r[:3] for r in rows if s * per <= r[3] < s * per + per])
+             for s in range(splits)]
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def one_chunk_rows(kc):
+    """The one-chunk plan over every band: ``tiles`` with t = 0..T-1."""
+    return [[*r, t] for t, r in enumerate(kc["tiles"].tolist())]
+
+
+def emulate_kernel(frames, kc, bf16, passes=3, per=0):
+    """The kernel's output from its chunked plan (split K by ``per``)."""
+    return split_mel_step(emulate_dft(frames, kc, bf16, passes), kc["fb"],
+                          kc["chunk_tiles"].tolist(), per)
 
 
 @pytest.mark.parametrize("bf16,bound", MODES, ids=MODE_IDS)
@@ -95,12 +128,17 @@ def test_kernel_arithmetic_matches_twin_and_pallas(gid, args, sr, bf16, bound):
     got = emulate_kernel(frames, kc, bf16)
     twin = dm.dft_mel_reference(frames, c["w_re"], c["w_im"], c["fb_t"], bf16=bf16)
     assert got.shape == twin.shape and bool(torch.isfinite(got).all())
-    assert _rel(got, twin) <= bound, _rel(got, twin)
+    # the precisions in force, for a failure's message: the twin's matmuls and JAX's default
+    where = (f"torch float32 matmul precision {torch.get_float32_matmul_precision()!r}, "
+             f"jax_default_matmul_precision {jax.config.jax_default_matmul_precision!r}")
+    rel = _rel(got, twin)
+    assert rel <= bound, f"emulated kernel vs twin: rel {rel} > {bound} ({where})"
 
     cp = pad_consts_for_pallas({k: v.numpy() for k, v in c.items()}, tile_k=128)
     pallas = np.array(pallas_dft_mel(frames[:16].numpy(), cp["w_re"], cp["w_im"], cp["fb_t"],
                                        tile_f=8, tile_k=128, bf16=bf16, interpret=True))
-    assert _rel(got[:16], torch.from_numpy(pallas)) <= bound
+    rel = _rel(got[:16], torch.from_numpy(pallas))
+    assert rel <= bound, f"emulated kernel vs Pallas (interpret): rel {rel} > {bound} ({where})"
 
 
 @pytest.mark.parametrize("gid,args,sr", GEOMS, ids=GEOM_IDS)
@@ -116,7 +154,8 @@ def test_band_skipping_and_k_padding_are_bit_identical(gid, args, sr):
     assert torch.equal(banded, dense)
 
 
-@pytest.mark.parametrize("gid,args,sr", GEOMS[1:], ids=GEOM_IDS[1:])
+@pytest.mark.parametrize("gid,args,sr", [g for g in GEOMS if not g[0].startswith("tiny")],
+                         ids=[i for i in GEOM_IDS if not i.startswith("tiny")])
 def test_single_tf32_pass_fails_the_exact_bound(gid, args, sr):
     """Why exact mode takes three TF32 products: one pass misses even the
     fast bound (2e-4 off, relative to max)."""
@@ -187,6 +226,86 @@ def test_plan_grid(n, row_tiles, splits):
     rt, sp, per = dm.plan_grid(n, k_tiles, H100_SMS)
     assert (rt, sp) == (row_tiles, splits)
     assert rt * dm.ROWS_PER_BLOCK >= n and (sp - 1) * per < k_tiles <= sp * per
+
+
+@pytest.mark.parametrize("gid,args,sr", CHUNK_GEOMS, ids=CHUNK_IDS)
+def test_chunked_plan_covers_every_band_once(gid, args, sr):
+    """Each nonzero filterbank entry (bin, band) lies in exactly one row of
+    the chunked plan; rows stay inside their chunk, in K order, each a
+    clipped copy of the one-chunk tile it names; a chunk no tile touches
+    has no rows and gives zero columns."""
+    c = _consts(args, sr)
+    kc = dm.prepare_consts(c["w_re"], c["w_im"], c["fb_t"], bf16=False)
+    m = c["fb_t"].shape[1]
+    tiles, rows = kc["tiles"].tolist(), kc["chunk_tiles"].tolist()
+    starts = kc["chunk_start"].tolist()
+    assert kc["chunk_tiles"].dtype == kc["chunk_start"].dtype == torch.int32
+    assert len(starts) == -(-m // dm.MEL_CHUNK) + 1 and starts[0] == 0 and starts[-1] == len(rows)
+    cover = np.zeros(tuple(kc["fb"].shape), np.int64)
+    for ch in range(len(starts) - 1):
+        c0, c1 = ch * dm.MEL_CHUNK, min(ch * dm.MEL_CHUNK + dm.MEL_CHUNK, m)
+        mine = rows[starts[ch]:starts[ch + 1]]
+        assert [r[0] for r in mine] == sorted({r[0] for r in mine})  # K order, once each
+        for kt, lo, hi, t in mine:
+            assert c0 <= lo < hi <= c1 and tiles[t][0] == kt
+            assert (max(tiles[t][1], c0), min(tiles[t][2], c1)) == (lo, hi)
+            cover[kt * dm.BINS_PER_TILE:(kt + 1) * dm.BINS_PER_TILE, lo:hi] += 1
+    fb = kc["fb"].numpy()
+    assert (cover[fb != 0] == 1).all()
+    assert cover.max() <= 1
+    # the emulated kernel: columns of chunks without rows are zero
+    empty = [ch for ch in range(len(starts) - 1) if starts[ch] == starts[ch + 1]]
+    if gid.startswith("yaml16k-m80"):  # bands 64-79 lie above 8 kHz: all-zero filters
+        assert empty == [1]
+    got = emulate_kernel(_frames(8, c["w_re"].shape[0]), kc, bf16=True)
+    for ch in empty:
+        assert not got[:, ch * dm.MEL_CHUNK:(ch + 1) * dm.MEL_CHUNK].any()
+        assert not fb[:, ch * dm.MEL_CHUNK:(ch + 1) * dm.MEL_CHUNK].any()
+
+
+@pytest.mark.parametrize("m", [1, 24, 48, 63, 64])
+@pytest.mark.parametrize("gid,args,sr", GEOMS[:4], ids=GEOM_IDS[:4])
+def test_chunked_plan_is_the_tile_list_up_to_64_bands(gid, args, sr, m):
+    c = _consts({**args, "ms_n_mels": m}, sr)
+    kc = dm.prepare_consts(c["w_re"], c["w_im"], c["fb_t"], bf16=True)
+    assert kc["chunk_tiles"].tolist() == one_chunk_rows(kc)
+    assert kc["chunk_start"].tolist() == [0, len(kc["tiles"])]
+
+
+@pytest.mark.parametrize("per", [0, 1, 2, 5])
+@pytest.mark.parametrize("gid,args,sr", CHUNK_GEOMS, ids=CHUNK_IDS)
+def test_chunked_emulation_is_bit_equal_to_one_chunk(gid, args, sr, per):
+    """Every (row, band) sums the same bins in the same tile and quad order
+    whatever the chunking, split K (``per`` tiles a split) included."""
+    c = _consts(args, sr)
+    kc = dm.prepare_consts(c["w_re"], c["w_im"], c["fb_t"], bf16=True)
+    mag = emulate_dft(_frames(16, c["w_re"].shape[0], seed=2), kc, bf16=True)
+    chunked = split_mel_step(mag, kc["fb"], kc["chunk_tiles"].tolist(), per)
+    one = split_mel_step(mag, kc["fb"], one_chunk_rows(kc), per)
+    assert torch.equal(chunked, one)
+    assert chunked.abs().max() > 0
+
+
+@pytest.mark.parametrize("n,chunks,row_tiles,splits", [
+    (43, 2, 1, 27), (43, 4, 1, 27), (10 * 128, 2, 10, 7), (66 * 128, 2, 66, 1),
+    (21216, 2, 166, 1), (166752, 2, 1303, 1)])
+def test_plan_grid_with_mel_chunks(n, chunks, row_tiles, splits):
+    """A block owns (row tile, mel chunk): K is split only while those
+    blocks leave SMs idle, into ceil(sms / (row tiles x chunks)) runs."""
+    rt, sp, per = dm.plan_grid(n, 27, H100_SMS, chunks)
+    assert (rt, sp) == (row_tiles, splits)
+    assert (sp - 1) * per < 27 <= sp * per
+    assert dm.plan_grid(n, 27, H100_SMS) == dm.plan_grid(n, 27, H100_SMS, 1)
+
+
+def test_mel_chunks_and_the_kernels_int_limits():
+    assert [dm.mel_chunks(1000, m) for m in (1, 64, 65, 80, 128, 200)] == [1, 1, 2, 2, 2, 4]
+    with pytest.raises(ValueError, match="32-bit"):
+        dm.mel_chunks(2 ** 31, 48)
+    with pytest.raises(ValueError, match="32-bit"):
+        dm.mel_chunks(10, 2 ** 31)
+    with pytest.raises(ValueError, match="blocks"):
+        dm.mel_chunks(2 ** 24, 2 ** 20)  # 131,072 row tiles x 16,384 chunks
 
 
 @pytest.mark.parametrize("n,row_tiles,splits", [(1001, 8, 11), (8 * 6014, 376, 1)])
@@ -262,3 +381,24 @@ def test_wrapper_takes_bf16_frames_only_in_fast_mode():
     with pytest.raises(TypeError):
         dm.fused_dft_mel(f, wr.to(torch.bfloat16), wi, fb, bf16=True)
 
+
+
+@pytest.mark.parametrize("m", [65, 80, 200])
+def test_wrapper_takes_any_number_of_mel_bands(m):
+    """Over 64 bands the wrapper computes the twin on the CPU and checks its
+    inputs as below 64 (on the card it launches the chunked kernel)."""
+    rng = np.random.default_rng(1)
+    f, wr, wi, fb = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                     for s in ((7, 5), (5, 3), (5, 3), (3, m)))
+    before = dm.fused_dft_mel.PREPARATIONS, dm.fused_dft_mel.LAUNCHES
+    for bf16 in (False, True):
+        out = dm.fused_dft_mel(f, wr, wi, fb, bf16=bf16)
+        assert out.shape == (7, m)
+        assert torch.equal(out, dm.dft_mel_reference(f, wr, wi, fb, bf16=bf16))
+    assert (dm.fused_dft_mel.PREPARATIONS, dm.fused_dft_mel.LAUNCHES) == before
+    with pytest.raises(ValueError, match="wants frames"):
+        dm.fused_dft_mel(f, wr, wi, fb[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        dm.fused_dft_mel(f, wr, wi, torch.zeros((m, 3)).t())
+    with pytest.raises(TypeError):
+        dm.fused_dft_mel(f, wr, wi, fb.double())

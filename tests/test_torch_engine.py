@@ -33,12 +33,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO, "nisqa_tpu_torch")
 
 
-def _ckpt(tmp, model_name, seed):
+def _ckpt(tmp, model_name, seed, n_mels=TINY_ARGS["ms_n_mels"]):
     # "precision" in the checkpoint args is the base config of both CLIs
-    args = {**TINY_ARGS, "model": model_name, "name": f"tiny_{model_name}", "precision": "highest"}
+    args = {**TINY_ARGS, "model": model_name, "name": f"tiny_{model_name}", "precision": "highest",
+            "ms_n_mels": n_mels}
     model = build_jax_model(model_name, model_args_from_ckpt_args(args))
     params, state = model.init(jax.random.PRNGKey(seed))
-    path = str(tmp / f"{model_name}.tar")
+    path = str(tmp / f"{model_name}_{n_mels}.tar")
     save_torch_checkpoint(path, model, params, state, args)
     return path
 
@@ -52,14 +53,17 @@ def corpus(tmp_path_factory):
     write_wav(str(tmp / "stereo.wav"), 0.2 * rng.standard_normal((2, 7000)).astype(np.float32), 8000)
     names.append("stereo.wav")
     ckpts = {m: _ckpt(tmp, m, seed) for seed, m in enumerate(("NISQA", "NISQA_DIM"), start=1)}
+    # more mel bands than the kernel's 64-band tile: two chunks on the card
+    ckpts["NISQA_DIM@80"] = _ckpt(tmp, "NISQA_DIM", 3, n_mels=80)
     return tmp, sorted(names), ckpts
 
 
-@pytest.mark.parametrize("model_name", ["NISQA", "NISQA_DIM"])
+@pytest.mark.parametrize("model_name", ["NISQA", "NISQA_DIM", "NISQA_DIM@80"])
 def test_engine_matches_jax_engine(corpus, model_name):
     tmp, names, ckpts = corpus
     paths = [str(tmp / n) for n in names]
     jmodel, params, state, args = load_jax_model(ckpts[model_name])
+    assert args["ms_n_mels"] == (80 if model_name.endswith("@80") else TINY_ARGS["ms_n_mels"])
     y_ref = JaxEngine(jmodel, params, state, JaxMsConfig(args), batch_size=4, num_workers=1,
                       precision="highest", fe_precision="exact").predict_paths(paths)
     model, args_t = load_model_from_tar(ckpts[model_name])
@@ -69,7 +73,7 @@ def test_engine_matches_jax_engine(corpus, model_name):
     assert {g[2] for g, _ in plan} == {"i16", "f32"}
     assert sorted(i for _, chunk in plan for i in chunk) == list(range(len(paths)))
     y = engine.predict_paths(paths)
-    assert y.shape == y_ref.shape == (len(paths), 5 if model_name == "NISQA_DIM" else 1)
+    assert y.shape == y_ref.shape == (len(paths), 5 if "DIM" in model_name else 1)
     assert np.isfinite(y).all()
     assert np.abs(y - y_ref).max() <= 1e-3
 

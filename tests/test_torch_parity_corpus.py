@@ -21,6 +21,10 @@ stored reference, on the CPU.
 Regenerate the reference (a few CPU minutes; it imports ``nisqa_tpu``):
 
     JAX_PLATFORMS=cpu python tests/test_torch_parity_corpus.py --record-reference
+
+It computes what the stored file lacks (a new corpus or checkpoint) and
+keeps the rest, unless the stored file was made by another jax; then it
+computes everything.
 """
 
 import datetime
@@ -40,11 +44,14 @@ import torch  # noqa: E402
 
 from nisqa_tpu_torch.tools import corpus, parity  # noqa: E402
 
-# leading files compared on the CPU: bench files, TTS clips, DE pairs
-SUBSET = {"bench": 6, "tts": 2, "de": 4}
+# leading files compared on the CPU: bench files, TTS clips, DE pairs, 16 kHz bench files
+SUBSET = {"bench": 6, "tts": 2, "de": 4, "bench16k": 6}
 FRESH_BOUND = 1e-6     # stored reference vs a fresh nisqa_tpu run
 SAME_BOUND = 1e-4      # the port vs nisqa_tpu at a key's settings, on the CPU
-RECIPES = {"bench": corpus.bench_corpus, "tts": corpus.tts_corpus, "de": corpus.de_corpus}
+# corpus -> (recipe, its arguments other than the folder and size)
+RECIPES = {"bench": (corpus.bench_corpus, {}), "tts": (corpus.tts_corpus, {}),
+           "de": (corpus.de_corpus, {"portable": True}),
+           "bench16k": (corpus.bench_corpus, {"sr": 16000})}
 
 
 def jax_predictions(tar, paths, paths_ref, batch_size):
@@ -59,23 +66,33 @@ def jax_predictions(tar, paths, paths_ref, batch_size):
 
 def record_reference(path=parity.REFERENCE):
     """Write ``parity_ref.npz``: every corpus in full, each checkpoint's
-    ``nisqa_tpu`` predictions over its corpus, the corpus hashes, ``meta``."""
+    ``nisqa_tpu`` predictions over its corpus, the corpus hashes, ``meta``.
+    The entries of a stored file made by this jax are kept; the meta's
+    ``date`` is then that of the newest entry."""
     import jax
     import jaxlib
 
     arrays, corpora_meta = {}, {}
+    if os.path.exists(path):
+        stored, stored_meta = parity.load_reference()
+        if (stored_meta["jax"], stored_meta["jaxlib"]) == (jax.__version__, jaxlib.__version__):
+            arrays, corpora_meta = stored, stored_meta["corpora"]
     with tempfile.TemporaryDirectory(prefix="nisqa_parity_ref_") as tmp:
         corpora = parity.write_corpora(tmp, {c: v[0] for c, v in parity.CORPORA.items()})
         tars = parity.write_checkpoints(tmp)
         for name, (paths, paths_ref) in corpora.items():
+            if name in corpora_meta:
+                continue
             per_file, total = parity.digests(parity.corpus_files(paths, paths_ref))
             arrays[f"sha256::{name}"] = per_file
-            fn = RECIPES[name]
+            fn, kwargs = RECIPES[name]
             corpora_meta[name] = {
                 "recipe": f"nisqa_tpu_torch/tools/corpus.py::{fn.__name__}",
                 "seed": inspect.signature(fn).parameters["seed"].default,
-                "n": len(paths), "sha256": total}
+                "n": len(paths), "sha256": total, **kwargs}
         for tar, name in parity.CHECKPOINT_CORPUS.items():
+            if f"ref::{tar}" in arrays:
+                continue
             paths, paths_ref = corpora[name]
             arrays[f"ref::{tar}"] = jax_predictions(tars[tar], paths, paths_ref,
                                                     parity.CORPORA[name][1])
@@ -123,7 +140,8 @@ def port(subset):
     """(record, {key: predictions}): the tool over the subsets on the CPU, no budget check."""
     return parity.run(parity.parse_args(
         ["--device", "cpu", "--n-bench", str(SUBSET["bench"]), "--n-tts", str(SUBSET["tts"]),
-         "--n-de", str(SUBSET["de"]), "--corpus-dir", subset[0]]))
+         "--n-de", str(SUBSET["de"]), "--n-bench16k", str(SUBSET["bench16k"]),
+         "--corpus-dir", subset[0]]))
 
 
 def fast_front_end(key):
@@ -168,8 +186,9 @@ def _record(**over):
 
 def test_reference_layout(reference):
     arrays, meta = reference
-    outputs = {"nisqa.tar": 5, "nisqa_mos_only.tar": 1, "nisqa_tts.tar": 1, "de_trained.tar": 1}
-    ends = {"bench": 1, "tts": 1, "de": 2}
+    outputs = {"nisqa.tar": 5, "nisqa_mos_only.tar": 1, "nisqa_tts.tar": 1, "de_trained.tar": 1,
+               "nisqa.tar@16k": 5, "nisqa_dim80.tar": 5}
+    ends = {"bench": 1, "tts": 1, "de": 2, "bench16k": 1}
     assert set(arrays) == ({f"ref::{t}" for t in outputs} | {f"sha256::{c}" for c in ends})
     for tar, k in outputs.items():
         y = arrays[f"ref::{tar}"]
@@ -182,6 +201,7 @@ def test_reference_layout(reference):
         assert meta["corpora"][name]["n"] == n and meta["batch_size"][name] == bs
         assert len(meta["corpora"][name]["sha256"]) == 64
     assert meta["corpora"]["tts"]["seed"] == 3 and meta["corpora"]["bench"]["seed"] == 0
+    assert meta["corpora"]["bench16k"]["sr"] == 16000
     assert (meta["platform"], meta["precision"], meta["fe_precision"]) == \
         ("cpu", "highest", "exact")
     assert meta["made_by"] == "python tests/test_torch_parity_corpus.py --record-reference"
@@ -217,7 +237,8 @@ def test_port_key_against_nisqa_tpu(port, reference, jax_fast, key):
     ref = reference[0][f"ref::{tar}"][: len(y)]
     assert m["n"] == len(y) == SUBSET[parity.CHECKPOINT_CORPUS[tar]]
     assert (m["precision"], m["fe"]) == (precision, fe or "auto")
-    assert y.shape[1] == len(m["mae_per_output"]) == (5 if tar == "nisqa.tar" else 1)
+    assert y.shape[1] == len(m["mae_per_output"]) == (
+        5 if tar in ("nisqa.tar", "nisqa.tar@16k", "nisqa_dim80.tar") else 1)
     assert {k: m[k] for k in ("mos_mae", "max_abs", "pearson_r", "mae_per_output")} == \
         parity.compare(y, ref)
     theirs = jax_fast[tar] if fast_front_end(key) else ref
@@ -233,7 +254,7 @@ def test_port_key_against_nisqa_tpu(port, reference, jax_fast, key):
 
 @pytest.mark.parametrize("name", sorted(parity.CORPORA))
 def test_a_changed_corpus_byte_refuses_the_comparison(tmp_path, name):
-    sizes = {"bench": 2, "tts": 2, "de": 2}
+    sizes = {"bench": 2, "tts": 2, "de": 2, "bench16k": 2}
     files = parity.corpus_files(*parity.write_corpora(str(tmp_path), sizes)[name])
     path = files[-1][-1]
     with open(path, "r+b") as f:  # one byte of the samples, past the header
@@ -324,7 +345,11 @@ def test_budgets_are_the_jax_gates():
     with open(gate.RECORD) as f:
         jax_keys = {k for k in json.load(f) if not k.startswith("_")}
     assert jax_keys < set(parity.KEYS)
-    assert set(parity.KEYS) - jax_keys == {"nisqa.tar::highest", "nisqa_mos_only.tar::highest"}
+    assert set(parity.KEYS) - jax_keys == {"nisqa.tar::highest", "nisqa_mos_only.tar::highest",
+                                           "nisqa.tar@16k::exact", "nisqa_dim80.tar::exact"}
+    # the new keys: the default-precision single-ended budget
+    for key in ("nisqa.tar@16k::exact", "nisqa_dim80.tar::exact"):
+        assert parity.budget_for(key) == gate._budget_for("nisqa.tar::exact"), key
     for key in jax_keys:
         assert parity.budget_for(key) == gate._budget_for(key), key
     assert parity.budget_for("nisqa.tar::highest") == gate.KEY_BUDGET["de_trained.tar::highest"]

@@ -92,11 +92,12 @@ def corpus(tmp_path_factory):
     return tmp
 
 
-def runners(corpus, model):
-    """(NisqaTPU, NisqaTorch) in mode main on the same args, the port's
-    model holding the JAX model's initial weights."""
+def runners(corpus, model, **over):
+    """(NisqaTPU, NisqaTorch) in mode main on the same args (``over``
+    replacing some), the port's model holding the JAX model's initial
+    weights."""
     args = {**EPOCH_ARGS, "model": model, "data_dir": str(corpus),
-            "output_dir": str(corpus / "out"), "mode": "main"}
+            "output_dir": str(corpus / "out"), "mode": "main", **over}
     jr = NisqaTPU(dict(args))
     pr = NisqaTorch({**args, "tr_device": "cpu"})
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
@@ -128,9 +129,14 @@ def check_epoch(jax_out, port_out, k):
     assert float(np.abs(val_p - val_j).max()) <= 1e-3
 
 
-@pytest.mark.parametrize("model,k", [("NISQA", 1), ("NISQA_DIM", 5)])
-def test_one_epoch_matches_jax(corpus, model, k):
-    jr, pr = runners(corpus, model)
+@pytest.mark.parametrize("model,k,n_mels", [("NISQA", 1, None), ("NISQA_DIM", 5, None),
+                                             ("NISQA_DIM", 5, 80)],
+                         ids=["NISQA-1", "NISQA_DIM-5", "NISQA_DIM-5-mels80"])
+def test_one_epoch_matches_jax(corpus, model, k, n_mels):
+    """``n_mels`` 80: more bands than the kernel's 64-band tile (two chunks
+    on the card), at this geometry's 342 kept bins."""
+    jr, pr = runners(corpus, model, **({"ms_n_mels": n_mels} if n_mels else {}))
+    assert pr.args["ms_n_mels"] == jr.args["ms_n_mels"] == (n_mels or TINY_ARGS["ms_n_mels"])
     jax_out, port_out, peng = run_both(jr, pr, k)
     check_epoch(jax_out, port_out, k)
     # 10 train files at bs 4: batches 4, 4 (48 + 16 kHz: two steps), 2

@@ -32,6 +32,12 @@ double-ended models (``stats["last"]["mode"]`` names the regime):
 
 Every regime ends in one device->host readback per pass (``fetch``).
 
+Passes that fill (cold and partial) split their host time in
+``stats["last"]`` (:meth:`InferenceEngine._note_pass`) and record profiler
+spans on the main thread: ``engine.scan_plan``, per batch
+``engine.wait_fill``, then ``engine.collect``; the host time between them
+is the batches' dispatch.
+
 Data parallel (``mesh``, a :class:`..parallel.mesh.DataParallel`): every
 rank scans and plans the whole list (the plan is deterministic) and runs
 the batches ``plan[rank::W]`` through the regimes above; the (N, K) result
@@ -215,6 +221,12 @@ def matmul_precision(precision: str):
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# The main thread's stage spans (``engine.*``), recorded at function scope:
+# with no profiler running one costs a small fraction of a user
+# annotation's (``record_function``), and a pass records a few per batch.
+_span = torch._C._profiler._RecordFunctionFast
 
 
 class _Slot:
@@ -450,10 +462,13 @@ class InferenceEngine:
         """Decode + reflect-pad one batch into ``slot`` (runs on the filler
         thread) with ``n_threads`` decode threads (None: ``num_workers``).
         Rows past the chunk take row 0's length (finite, dropped after the
-        forward)."""
+        forward). Returns the host seconds spent waiting for the slot and
+        decoding (the native fill call, and the rows written in Python)."""
         pad, ms = self.ms.n_fft // 2, self.ms
         n_threads = n_threads or self.num_workers
+        t = time.perf_counter()
         buf, n = slot.acquire(buf_len)
+        slot_s, decode_s = time.perf_counter() - t, 0.0
         if kind == "i16":
             # raw PCM16 transport: [left reflect][samples][right reflect]
             # [bounded garbage]. No zeroing: int16 garbage is bounded, gives
@@ -473,11 +488,13 @@ class InferenceEngine:
             target = buf[: len(chunk)] if all_native else np.zeros(
                 (len(native_items), buf_len), dtype)
             src = [paths[i] for _, i in native_items]
+            t = time.perf_counter()
             if kind == "i16":
                 ns, srs, status = native.fill_batch_i16(src, target, pad, n_threads=n_threads)
             else:
                 ns, srs, status = native.fill_batch_f32(
                     src, target, pad, channel=ms.channel, n_threads=n_threads)
+            decode_s += time.perf_counter() - t
             for row, (j, i) in enumerate(native_items):
                 if status[row] == 0:
                     validate_filled_row(ms, paths[i], ns[row], audio[i][2], srs[row])
@@ -486,11 +503,14 @@ class InferenceEngine:
                     n[j] = ns[row]
                     continue
                 # rare race (file changed since scan): decode in Python below
+                t = time.perf_counter()
                 x, sr_got = self._load_audio(paths[i])
+                decode_s += time.perf_counter() - t
                 validate_filled_row(ms, paths[i], len(x), audio[i][2], sr_got)
                 if kind == "i16":
                     x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
                 audio[i] = (kind, x, audio[i][2])
+        t = time.perf_counter()
         for j, i in enumerate(chunk):
             tag, x = audio[i][0], audio[i][1]
             if tag in ("native", "native_f32"):
@@ -514,6 +534,7 @@ class InferenceEngine:
                 buf[j, :w] = padded[:w]
             n[j] = ln
         n[len(chunk):] = n[0]
+        return slot_s, decode_s + time.perf_counter() - t
 
     def _fill_pool(self):
         """One background filler thread: fills batch j+1 while the main
@@ -578,20 +599,28 @@ class InferenceEngine:
         if self._cuda:
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _run_cold(self, batches, audio, paths, timings, keep, audio_ref=None, paths_ref=None):
+    def _run_cold(self, batches, audio, paths, timings, keep, audio_ref=None, paths_ref=None,
+                  t0=None):
         """Fill (filler thread) -> upload -> mel -> seg+model for each
         (gkey, chunk), one fill, upload and mel stage per end. Returns the
         per-batch outputs and, with ``keep``, the (gkey, chunk, db, n) or,
         double-ended, (gkey, chunk, db_d, n_d, db_r, n_r) device blocks for
         the cache. A filler exception reaches the caller through
-        ``fut.result()``."""
-        timings["fill_s"] = 0.0
+        ``fut.result()``.
+
+        ``timings`` gains fill_s, wait_s and dispatch_s, and the split of
+        :meth:`_note_pass`: first_wait_s, ready_batches, fill_decode_s,
+        fill_slot_s and, given the pass's start ``t0``, head_s. The main
+        thread records the span ``engine.wait_fill`` per batch."""
+        timings.update(fill_s=0.0, fill_slot_s=0.0, fill_decode_s=0.0)
         ends = [(audio, paths)] + ([(audio_ref, paths_ref)] if audio_ref is not None else [])
 
         def fill(slots, chunk, buf_len, kind):
             tf = time.perf_counter()
             for slot, (end_audio, end_paths) in zip(slots, ends):
-                self._make_batch(slot, chunk, end_audio, end_paths, buf_len, kind)
+                slot_s, decode_s = self._make_batch(slot, chunk, end_audio, end_paths, buf_len, kind)
+                timings["fill_slot_s"] += slot_s
+                timings["fill_decode_s"] += decode_s
             timings["fill_s"] += time.perf_counter() - tf
 
         jobs = []
@@ -601,12 +630,19 @@ class InferenceEngine:
             jobs.append((slots, buf_len, self._fill_pool().submit(fill, slots, chunk, buf_len, gkey[2])))
         ys, kept = [], []
         wait_s = dispatch_s = 0.0
+        first_wait_s, ready = None, 0
         try:
             for (gkey, chunk), (slots, buf_len, fut) in zip(batches, jobs):
+                ready += fut.done()
                 tw = time.perf_counter()
-                fut.result()
+                with _span("engine.wait_fill"):
+                    fut.result()
                 td = time.perf_counter()
                 wait_s += td - tw
+                if first_wait_s is None:
+                    first_wait_s = td - tw
+                    if t0 is not None:
+                        timings["head_s"] = td - t0
                 blocks = []
                 for slot in slots:
                     audio_d, n_d = self._upload(slot, buf_len)
@@ -630,6 +666,8 @@ class InferenceEngine:
             raise
         timings["wait_s"] = timings.get("wait_s", 0.0) + wait_s
         timings["dispatch_s"] = timings.get("dispatch_s", 0.0) + dispatch_s
+        timings["first_wait_s"] = first_wait_s or 0.0
+        timings["ready_batches"] = ready
         return ys, kept
 
     # -- corpus cache ----------------------------------------------------------
@@ -784,13 +822,15 @@ class InferenceEngine:
                 out[i] = e
             return out
 
-        audio = tail(paths)
-        audio_ref = tail(paths_ref) if paths_ref is not None else None
+        with _span("engine.scan_plan"):
+            audio = tail(paths)
+            audio_ref = tail(paths_ref) if paths_ref is not None else None
         timings["scan_plan_s"] = time.perf_counter() - ts
 
         ys += self._run_cold(cold, audio, paths, timings, False, audio_ref, paths_ref)[0]
         chunks = [chunk for _, chunk, *_ in hit["batches"]] + [chunk for _, chunk in cold]
-        return self._collect(ys, chunks, N, fetch, timings)
+        with _span("engine.collect"):
+            return self._collect(ys, chunks, N, fetch, timings)
 
     # -- passes ------------------------------------------------------------------
 
@@ -844,15 +884,18 @@ class InferenceEngine:
             self.model.train(was_training)
 
     def _cold_pass(self, fp, paths, paths_ref, N, fetch, t0):
-        audio, audio_ref, plan = self._scan_plan(paths, paths_ref)
+        with _span("engine.scan_plan"):
+            audio, audio_ref, plan = self._scan_plan(paths, paths_ref)
         t_plan = time.perf_counter()
         timings = {}
-        ys, kept = self._run_cold(plan, audio, paths, timings, fp is not None, audio_ref, paths_ref)
+        ys, kept = self._run_cold(plan, audio, paths, timings, fp is not None, audio_ref, paths_ref,
+                                  t0=t0)
         if fp is not None:
             self._store_cold(fp, plan, kept)
         del kept
-        out = self._collect(ys, [chunk for _, chunk in plan], N,
-                            True if fetch == "async" else fetch, timings)
+        with _span("engine.collect"):
+            out = self._collect(ys, [chunk for _, chunk in plan], N,
+                                True if fetch == "async" else fetch, timings)
         self._note_pass("interleaved", N, len(plan), t0, t_plan, time.perf_counter(), timings)
         return (lambda: out) if fetch == "async" else out
 
@@ -946,7 +989,14 @@ class InferenceEngine:
         adds scan_plan_s (header scan + plan), fill_s (filler-thread decode),
         wait_s (main thread blocked on fills), dispatch_s (uploads and
         kernel launches), block_s (wait for the device), fetch_s (readback),
-        and resident_batches / cold_batches on partial passes."""
+        and resident_batches / cold_batches on partial passes.
+
+        Passes that fill (cold and partial) also split them: first_wait_s
+        (the wait for the first filled batch), ready_batches (batches filled
+        before the main thread reached them), fill_slot_s and fill_decode_s
+        (the filler's waits for a free staging slot and its decode, parts of
+        fill_s); cold passes add head_s, from the call to the first batch's
+        dispatch, when the device has nothing of the pass."""
         s = self.stats
         s["passes"] += 1
         s["files"] += n_files

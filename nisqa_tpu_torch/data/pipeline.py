@@ -34,9 +34,12 @@ Every regime ends in one device->host readback per pass (``fetch``).
 
 Passes that fill (cold and partial) split their host time in
 ``stats["last"]`` (:meth:`InferenceEngine._note_pass`) and record profiler
-spans on the main thread: ``engine.scan_plan``, per batch
+spans on the main thread: ``engine.scan_plan``, per batch and end
 ``engine.wait_fill``, then ``engine.collect``; the host time between them
-is the batches' dispatch.
+is the batches' dispatch. A double-ended model's alignment and fusion run
+inside ``engine.align`` in every regime, between two CUDA timing events on
+the compute stream that the pass reads once it has synchronised; its passes
+also count the reference end's decode and the trunk's segment rows.
 
 Data parallel (``mesh``, a :class:`..parallel.mesh.DataParallel`): every
 rank scans and plans the whole list (the plan is deterministic) and runs
@@ -323,6 +326,9 @@ class InferenceEngine:
         self._fill_ex = None
         self._cuda = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
+        # (start, end) CUDA timing events of the alignments, reused pass
+        # after pass; the first _align_n of them are the current pass's
+        self._align_events, self._align_n = [], 0
 
     # -- host side -----------------------------------------------------------
 
@@ -367,26 +373,26 @@ class InferenceEngine:
                     out[i] = v
         return out
 
+    def _n_wins_kind(self, entry):
+        """(n_wins, transport kind) of one scanned file."""
+        tag, data, sr = entry
+        n = data if tag in ("native", "native_f32") else len(data)
+        ms = self.ms
+        return ms.n_wins(ms.n_frames(n, sr)), {"native": "i16", "native_f32": "f32"}.get(tag, tag)
+
     def _metas_for(self, audio, audio_ref=None):
         """Per-file (index, sr, n_wins, transport kind). A double-ended pair
         takes the larger n_wins of its two ends and the f32 transport when
         either end needs it; its ends must share a sample rate."""
-        ms = self.ms
-
-        def n_wins_kind(entry):
-            tag, data, sr = entry
-            n = data if tag in ("native", "native_f32") else len(data)
-            return ms.n_wins(ms.n_frames(n, sr)), {"native": "i16", "native_f32": "f32"}.get(tag, tag)
-
         metas = []
         for i, entry in enumerate(audio):
             sr = entry[2]
-            nw, kind = n_wins_kind(entry)
+            nw, kind = self._n_wins_kind(entry)
             if audio_ref is not None:
                 ref = audio_ref[i]
                 if ref[2] != sr:
                     raise ValueError(f"deg/ref sample rates differ for item {i}: {sr} != {ref[2]}")
-                nw_r, kind_r = n_wins_kind(ref)
+                nw_r, kind_r = self._n_wins_kind(ref)
                 nw = max(nw, nw_r)
                 kind = "f32" if "f32" in (kind, kind_r) else "i16"
             metas.append((i, sr, nw, kind))
@@ -427,8 +433,11 @@ class InferenceEngine:
     def _scan_plan(self, paths, paths_ref):
         """(degraded-end audio, reference-end audio or None, plan); under a
         mesh the plan is the rank's share, ``plan[rank::W]``."""
-        audio = self._scan_transport(paths)
-        audio_ref = self._scan_transport(paths_ref) if paths_ref is not None else None
+        if paths_ref is None:
+            audio, audio_ref = self._scan_transport(paths), None
+        else:  # both ends in one scan
+            both = self._scan_transport(paths + paths_ref)
+            audio, audio_ref = both[: len(paths)], both[len(paths) :]
         plan = self._plan_for(self._metas_for(audio, audio_ref))
         if self.mesh is not None:
             plan = plan[self.mesh.rank :: self.mesh.size]
@@ -592,8 +601,27 @@ class InferenceEngine:
         sr, bucket, _ = gkey
         ends = [seg_fn(self.ms, sr, bucket, db, n) for db, n in zip(blocks[::2], blocks[1::2])]
         if self.model.double_ended:
-            return self.model.forward_ends(*ends[0], *ends[1])
+            return self.model.forward_ends(*ends[0], *ends[1], stage=self._align_stage)
         return self.model(*ends[0])
+
+    @contextlib.contextmanager
+    def _align_stage(self):
+        """Around NISQA_DE's alignment and fusion: the span ``engine.align``
+        and, on CUDA, a pair of timing events on the compute stream, which
+        :meth:`_collect` reads once the pass has synchronised."""
+        with _span("engine.align"):
+            if not self._cuda:
+                yield
+                return
+            if self._align_n == len(self._align_events):
+                self._align_events.append((torch.cuda.Event(enable_timing=True),
+                                           torch.cuda.Event(enable_timing=True)))
+            start, end = self._align_events[self._align_n]
+            self._align_n += 1
+            stream = torch.cuda.current_stream(self.device)
+            start.record(stream)
+            yield
+            end.record(stream)
 
     def _sync(self):
         if self._cuda:
@@ -610,43 +638,55 @@ class InferenceEngine:
 
         ``timings`` gains fill_s, wait_s and dispatch_s, and the split of
         :meth:`_note_pass`: first_wait_s, ready_batches, fill_decode_s,
-        fill_slot_s and, given the pass's start ``t0``, head_s. The main
-        thread records the span ``engine.wait_fill`` per batch."""
+        fill_slot_s, double-ended fill_decode_ref_s and, given the pass's
+        start ``t0``, head_s. The main thread records the span
+        ``engine.wait_fill`` per batch and end."""
         timings.update(fill_s=0.0, fill_slot_s=0.0, fill_decode_s=0.0)
         ends = [(audio, paths)] + ([(audio_ref, paths_ref)] if audio_ref is not None else [])
+        if audio_ref is not None:
+            timings["fill_decode_ref_s"] = 0.0
 
-        def fill(slots, chunk, buf_len, kind):
+        def fill(slot, chunk, buf_len, kind, end):
             tf = time.perf_counter()
-            for slot, (end_audio, end_paths) in zip(slots, ends):
-                slot_s, decode_s = self._make_batch(slot, chunk, end_audio, end_paths, buf_len, kind)
-                timings["fill_slot_s"] += slot_s
-                timings["fill_decode_s"] += decode_s
+            end_audio, end_paths = ends[end]
+            slot_s, decode_s = self._make_batch(slot, chunk, end_audio, end_paths, buf_len, kind)
+            timings["fill_slot_s"] += slot_s
+            timings["fill_decode_s"] += decode_s
+            if end:
+                timings["fill_decode_ref_s"] += decode_s
             timings["fill_s"] += time.perf_counter() - tf
 
+        # one fill job per batch and end, in the order the main thread takes
+        # them: a double-ended batch's degraded end is uploaded and on the
+        # device while the filler decodes its reference end
         jobs = []
         for gkey, chunk in batches:
             buf_len = frame_geometry(self.ms, gkey[0], gkey[1])[4]
             slots = [self._host_buf(gkey[2], e) for e in range(len(ends))]
-            jobs.append((slots, buf_len, self._fill_pool().submit(fill, slots, chunk, buf_len, gkey[2])))
+            futs = [self._fill_pool().submit(fill, slot, chunk, buf_len, gkey[2], e)
+                    for e, slot in enumerate(slots)]
+            jobs.append((slots, buf_len, futs))
         ys, kept = [], []
         wait_s = dispatch_s = 0.0
         first_wait_s, ready = None, 0
         try:
-            for (gkey, chunk), (slots, buf_len, fut) in zip(batches, jobs):
-                ready += fut.done()
-                tw = time.perf_counter()
-                with _span("engine.wait_fill"):
-                    fut.result()
-                td = time.perf_counter()
-                wait_s += td - tw
-                if first_wait_s is None:
-                    first_wait_s = td - tw
-                    if t0 is not None:
-                        timings["head_s"] = td - t0
+            for (gkey, chunk), (slots, buf_len, futs) in zip(batches, jobs):
+                ready += all(fut.done() for fut in futs)
                 blocks = []
-                for slot in slots:
+                for slot, fut in zip(slots, futs):
+                    tw = time.perf_counter()
+                    with _span("engine.wait_fill"):
+                        fut.result()
+                    td = time.perf_counter()
+                    wait_s += td - tw
+                    if first_wait_s is None:
+                        first_wait_s = td - tw
+                        if t0 is not None:
+                            timings["head_s"] = td - t0
                     audio_d, n_d = self._upload(slot, buf_len)
                     blocks += [self._mel(gkey, audio_d, n_d), n_d]
+                    dispatch_s += time.perf_counter() - td
+                td = time.perf_counter()
                 ys.append(self._seg_model(gkey, *blocks))
                 if keep:
                     kept.append((gkey, chunk, *blocks))
@@ -654,12 +694,13 @@ class InferenceEngine:
         except BaseException:
             # free the filler: drop the fills not started, hand every slot
             # back (a running fill may wait on one), and again once it ends
-            for _, _, fut in jobs:
+            futs = [fut for _, _, fs in jobs for fut in fs]
+            for fut in futs:
                 fut.cancel()
             for slots, _, _ in jobs:
                 for slot in slots:
                     slot.release()
-            wait_futures([fut for _, _, fut in jobs])
+            wait_futures(futs)
             for slots, _, _ in jobs:
                 for slot in slots:
                     slot.release()
@@ -861,6 +902,7 @@ class InferenceEngine:
                 return lambda: empty
             return empty if fetch else None
         t0 = time.perf_counter()
+        self._align_n = 0
         fp = self._fingerprint(paths, paths_ref)
         hit = self._corpus_cache.pop(fp, None) if fp is not None else None
         with self._serving():
@@ -888,6 +930,12 @@ class InferenceEngine:
             audio, audio_ref, plan = self._scan_plan(paths, paths_ref)
         t_plan = time.perf_counter()
         timings = {}
+        if audio_ref is not None:
+            # segment rows the trunk runs (both ends of every batch row at
+            # its bucket) and those of the ends' own n_wins
+            timings["trunk_rows"] = 2 * self.batch_size * sum(gkey[1] for gkey, _ in plan)
+            timings["own_rows"] = sum(self._n_wins_kind(end[i])[0] for end in (audio, audio_ref)
+                                      for _, chunk in plan for i in chunk)
         ys, kept = self._run_cold(plan, audio, paths, timings, fp is not None, audio_ref, paths_ref,
                                   t0=t0)
         if fp is not None:
@@ -976,27 +1024,38 @@ class InferenceEngine:
         self._sync()
         t1 = time.perf_counter()
         timings["block_s"] = t1 - t0
-        if not fetch:
-            return None
-        host, done = self._readback(all_dev)
-        if done is not None:
-            done.synchronize()
-        timings["fetch_s"] = time.perf_counter() - t1
-        return self._scatter(host.numpy(), chunks, N)
+        if fetch:
+            host, done = self._readback(all_dev)
+            if done is not None:
+                done.synchronize()
+            timings["fetch_s"] = time.perf_counter() - t1
+        if self._align_n:  # all recorded before the pass synchronised
+            timings["align_device_s"] = sum(
+                a.elapsed_time(b) for a, b in self._align_events[: self._align_n]) / 1e3
+            self._align_n = 0
+        return self._scatter(host.numpy(), chunks, N) if fetch else None
 
     def _note_pass(self, mode, n_files, n_batches, t0, t_plan, t_end, timings=None):
-        """Cumulative and last-pass statistics. ``timings`` (host clocks)
-        adds scan_plan_s (header scan + plan), fill_s (filler-thread decode),
-        wait_s (main thread blocked on fills), dispatch_s (uploads and
-        kernel launches), block_s (wait for the device), fetch_s (readback),
-        and resident_batches / cold_batches on partial passes.
+        """Cumulative and last-pass statistics, in seconds to the
+        microsecond. ``timings`` (host clocks) adds scan_plan_s (header scan
+        + plan), fill_s (filler-thread decode), wait_s (main thread blocked
+        on fills), dispatch_s (uploads and kernel launches), block_s (wait
+        for the device), fetch_s (readback), and resident_batches /
+        cold_batches on partial passes.
 
         Passes that fill (cold and partial) also split them: first_wait_s
-        (the wait for the first filled batch), ready_batches (batches filled
+        (the wait for the first batch's first filled end), ready_batches (batches filled
         before the main thread reached them), fill_slot_s and fill_decode_s
         (the filler's waits for a free staging slot and its decode, parts of
-        fill_s); cold passes add head_s, from the call to the first batch's
-        dispatch, when the device has nothing of the pass."""
+        fill_s); cold passes add head_s, from the call to the first end's
+        dispatch, when the device has nothing of the pass.
+
+        A double-ended model's passes add fill_decode_ref_s (the reference
+        end's part of fill_decode_s) where the filler runs, trunk_rows and
+        own_rows (the segment rows the trunk ran over both ends, and those
+        of each end's own n_wins) on cold passes, and, on CUDA,
+        align_device_s (the device time of the alignment and fusion) on
+        passes that synchronise."""
         s = self.stats
         s["passes"] += 1
         s["files"] += n_files
@@ -1005,9 +1064,9 @@ class InferenceEngine:
             "mode": mode,
             "files": n_files,
             "batches": n_batches,
-            "wall_s": round(t_end - t0, 4),
-            "scan_plan_s": round(t_plan - t0, 4),
-            **{k: round(v, 4) for k, v in (timings or {}).items()},
+            "wall_s": round(t_end - t0, 6),
+            "scan_plan_s": round(t_plan - t0, 6),
+            **{k: round(v, 6) for k, v in (timings or {}).items()},
         }
 
     # -- warmup ------------------------------------------------------------------

@@ -23,6 +23,8 @@ gives it.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -127,12 +129,14 @@ class NISQA_DE(NISQA):
         n = torch.cat([n_deg, n_ref])
         return self.time_dependency(self.cnn(torch.cat([deg, ref])), n).split(deg.shape[0])
 
-    def forward_ends(self, deg, n_deg, ref, n_ref, row_valid=None):
+    def forward_ends(self, deg, n_deg, ref, n_ref, row_valid=None, stage=contextlib.nullcontext):
         """(deg (B, T, M, S), n_deg (B,), ref (B, T, M, S), n_ref (B,)) ->
-        (B, 1)."""
+        (B, 1). The alignment and fusion run inside ``stage()``, a context
+        manager (the serving engine's span and timing events)."""
         fd, fr = self.trunk_ends(deg, n_deg, ref, n_ref, row_valid)
-        h = self.time_dependency_2(self.fuse(fd, self.align(fd, fr, n_ref)), n_deg)
-        return self.pool(h, n_deg)
+        with stage():
+            fused = self.fuse(fd, self.align(fd, fr, n_ref))
+        return self.pool(self.time_dependency_2(fused, n_deg), n_deg)
 
 
 def _pool_dropout(cfg) -> float:

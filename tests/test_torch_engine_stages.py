@@ -93,6 +93,14 @@ def test_split_keys_by_regime(corpora, decode, kind, fetch):
     _check_split(last, cold=False)
 
 
+def _per_batch(kind):
+    """The main thread's spans of one batch: its wait for each end's fill
+    and, double-ended, the alignment and fusion inside its dispatch."""
+    if kind == "de":
+        return ["engine.wait_fill", "engine.wait_fill", "engine.align"]
+    return ["engine.wait_fill"]
+
+
 def _main_thread_spans(prof):
     """The names of the main thread's ``engine.*`` events in the order they
     start, and the set of every event's name."""
@@ -106,8 +114,8 @@ def _main_thread_spans(prof):
 @pytest.mark.parametrize("kind", ["se", "de"])
 def test_main_thread_spans_under_the_profiler(corpora, kind):
     """A cold pass under ``torch.profiler``: ``engine.scan_plan``, then per
-    batch ``engine.wait_fill``, then ``engine.collect`` on the calling
-    thread, no ``bench.`` name, and the predictions bit-equal to a pass
+    batch ``engine.wait_fill`` per end (and ``engine.align`` double-ended), then
+    ``engine.collect`` on the calling thread, no ``bench.`` name, and the predictions bit-equal to a pass
     without the profiler."""
     ckpt, deg, ref = corpora[kind]
     eng = _engine(ckpt, cache_mb=0)
@@ -120,7 +128,7 @@ def test_main_thread_spans_under_the_profiler(corpora, kind):
     names, every = _main_thread_spans(prof)
     n = eng.stats["last"]["batches"]
     assert n == len(eng.plan(deg, ref)) and n >= 2
-    assert names == ["engine.scan_plan"] + ["engine.wait_fill"] * n + ["engine.collect"]
+    assert names == ["engine.scan_plan"] + _per_batch(kind) * n + ["engine.collect"]
     assert not [e for e in every if e.startswith("bench.")]
 
 
@@ -164,7 +172,7 @@ def test_the_filler_records_no_span_and_its_clocks_make_the_pass(corpora, decode
     last, ends = eng.stats["last"], 1 if ref is None else 2
     assert not [t for t, _, _ in log if t.startswith("nisqa-filler")]
     assert [(d, s) for _, d, s in log] == [
-        (0, s) for s in ["engine.scan_plan"] + ["engine.wait_fill"] * last["batches"]
+        (0, s) for s in ["engine.scan_plan"] + _per_batch(kind) * last["batches"]
         + ["engine.collect"]]
     assert len(got) == ends * last["batches"]
     assert all(slot_s >= 0 and decode_s > 0 for slot_s, decode_s in got)
@@ -201,3 +209,94 @@ def test_a_failed_fill_leaves_the_next_pass_split(corpora, monkeypatch):
     eng.predict_paths(deg)
     _check_split(eng.stats["last"], cold=True)
     assert eng.stats["passes"] == 2
+
+
+DE_KEYS = {"fill_decode_ref_s", "trunk_rows", "own_rows", "align_device_s"}
+
+
+def _own_rows(eng, paths):
+    from nisqa_tpu_torch.audio.wav import read_wav
+
+    total = 0
+    for p in paths:
+        y, sr = read_wav(p)
+        total += eng.ms.n_wins(eng.ms.n_frames(len(y), sr))
+    return total
+
+
+def test_de_counters_on_a_cold_pass(corpora, decode):
+    """The reference end's decode is a part of the pass's decode; the trunk
+    runs both ends of every batch row at its bucket, of which the ends' own
+    n_wins are a part; no device time on the CPU."""
+    ckpt, deg, ref = corpora["de"]
+    eng = _engine(ckpt, cache_mb=0)
+    eng.predict_paths(deg, ref)
+    last = eng.stats["last"]
+    assert 0 < last["fill_decode_ref_s"] <= last["fill_decode_s"]
+    plan = eng.plan(deg, ref)
+    assert last["trunk_rows"] == 2 * BS * sum(gkey[1] for gkey, _ in plan)
+    assert last["own_rows"] == _own_rows(eng, deg) + _own_rows(eng, ref)
+    assert 0 < last["own_rows"] <= last["trunk_rows"]
+    assert "align_device_s" not in last
+
+
+def test_de_partial_pass_splits_the_reference_decode(corpora):
+    """A partial pass re-fills its cold tail: the reference end's decode is
+    counted there too; the trunk's rows are a cold pass's alone."""
+    ckpt, deg, ref = corpora["de"]
+    full = _engine(ckpt, cache_mb=64)
+    full.predict_paths(deg, ref)
+    first = next(iter(full._corpus_cache.values()))["batches"][0]
+    partial = _engine(ckpt, cache_mb=(pl._nbytes(*first[2:]) + 1) / (1 << 20))
+    partial.predict_paths(deg, ref)
+    partial.predict_paths(deg, ref)
+    last = partial.stats["last"]
+    assert last["mode"] == "cached_partial"
+    assert 0 < last["fill_decode_ref_s"] <= last["fill_decode_s"]
+    assert not {"trunk_rows", "own_rows", "align_device_s"} & set(last)
+
+
+@pytest.mark.parametrize("cache_mb", [0, 64])
+def test_a_single_ended_pass_carries_no_de_key(corpora, cache_mb):
+    ckpt, deg, _ = corpora["se"]
+    eng = _engine(ckpt, cache_mb=cache_mb)
+    for _ in range(2):  # cold, then (with the cache) cached
+        eng.predict_paths(deg)
+        assert not DE_KEYS & set(eng.stats["last"])
+    assert eng._align_n == 0 and eng._align_events == []
+
+
+class _TimedPair:
+    """Stands in for a CUDA event: ``elapsed_time`` in ms to its partner."""
+
+    def elapsed_time(self, other):
+        return 2.5
+
+
+@pytest.mark.parametrize("fetch", [True, False])
+def test_align_device_time_is_summed_once_the_pass_synchronised(corpora, monkeypatch, fetch):
+    """Each alignment's event pair is read by the pass's collect, after its
+    synchronisation, and summed into ``align_device_s``; the next pass
+    records into the same pairs."""
+    ckpt, deg, ref = corpora["de"]
+    eng = _engine(ckpt, cache_mb=0)
+    stage = eng._align_stage
+    seen = []
+
+    @contextlib.contextmanager
+    def timed():
+        with stage():
+            yield
+        if eng._align_n == len(eng._align_events):
+            eng._align_events.append((_TimedPair(), _TimedPair()))
+        eng._align_n += 1
+        seen.append(eng._align_n)
+
+    monkeypatch.setattr(eng, "_align_stage", timed)
+    for _ in range(2):  # the second pass reuses the first one's events
+        seen.clear()
+        eng.predict_paths(deg, ref, fetch=fetch)
+        n = eng.stats["last"]["batches"]
+        assert seen == list(range(1, n + 1))
+        assert eng.stats["last"]["align_device_s"] == pytest.approx(n * 2.5e-3)
+        assert eng._align_n == 0 and len(eng._align_events) == n

@@ -1294,10 +1294,10 @@ def epoch_report(runner, rows, label: str, card: str):
     """Prints each epoch of a training run (train audio-s/s over
     ``run_epoch``'s wall, mean step, validation, loss; the corpus build) and
     returns the train audio-s of the run's train set."""
-    from nisqa_tpu_torch.train.loop import _n_of
+    from nisqa_tpu_torch.data.fill import n_samples
 
     eng = runner.train_engine
-    train_audio_s = sum(_n_of(e) / e[2] for e in eng._entries(runner.ds_train.paths()))
+    train_audio_s = sum(n_samples(e) / e[2] for e in eng._entries(runner.ds_train.paths()))
     for h, row in zip(eng.history, rows):
         build = "" if h["build_s"] is None else f"; corpus build {h['build_s']:.4f} s of it"
         print(f"{label} epoch {h['epoch'] + 1}: {h['files']} files, {train_audio_s:.1f} audio-s in "

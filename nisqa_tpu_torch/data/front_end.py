@@ -2,8 +2,8 @@
 
 Counterpart of ``nisqa_tpu/data/pipeline.py::_front_end`` (``mel_fn`` and
 ``seg_fn``). The geometry and the host-computed constants are the JAX
-package's own (:func:`..pipeline.front_end_consts`), so the same buffers
-give the same mels:
+package's own (:func:`front_end_consts`), so the same buffers give the
+same mels:
 
   * frame ``t`` is ``audio[b, t*hop + lpad : t*hop + lpad + win]`` with
     ``lpad = (n_fft - win) // 2``: the analysis window is nonzero on only
@@ -19,9 +19,40 @@ give the same mels:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..audio.filters import mel_filterbank, padded_window
 from ..ops.dft_mel import fused_dft_mel
+
+
+def front_end_consts(ms, sr: int, transport: str = "f32"):
+    """Host-computed windowed-DFT + mel tensors (numpy float32).
+
+    The window, the librosa 1/32768 PCM16 scaling (transport='i16') and the
+    zero-padding of the n_fft frame are folded into the DFT weights; only
+    the DFT bins the mel filterbank reads are kept (rounded up to a multiple
+    of 128, as in the JAX package, so both compute over the same bins).
+    """
+    win = int(sr * ms.win_s)
+    n_fft = ms.n_fft
+
+    fb = mel_filterbank(int(sr), n_fft, ms.n_mels, 0.0, ms.fmax)  # (M, K)
+    nz = np.nonzero(fb.any(axis=0))[0]
+    k_hi = int(nz[-1]) + 1 if len(nz) else fb.shape[1]
+    k_keep = min(-(-k_hi // 128) * 128, fb.shape[1])
+
+    lpad = (n_fft - win) // 2
+    window = padded_window(win, n_fft).astype(np.float64)
+    scale = (1.0 / 32768.0) if transport == "i16" else 1.0
+    s_idx = lpad + np.arange(win)
+    wvals = window[s_idx] * scale
+    ang = -2.0 * np.pi * np.outer(s_idx, np.arange(k_keep)) / n_fft
+    return {
+        "w_re": (wvals[:, None] * np.cos(ang)).astype(np.float32),
+        "w_im": (wvals[:, None] * np.sin(ang)).astype(np.float32),
+        "fb_t": np.ascontiguousarray(fb[:, :k_keep].T),
+    }
 
 
 def frame_geometry(ms, sr: int, t_bucket: int):

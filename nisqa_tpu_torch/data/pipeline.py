@@ -1,18 +1,20 @@
 """Batched inference engine: wav -> mel -> segments -> model, on one device.
 
 Counterpart of ``nisqa_tpu/data/pipeline.py``. ``MsConfig``,
-``front_end_consts``, ``validate_filled_row`` and ``_resident_split`` are
-numpy-only and are moved here unchanged, because the JAX file imports jax;
-the tests hold them equal to the originals. :class:`InferenceEngine` keeps
-the JAX engine's method names for its serving regimes, for single-ended and
-double-ended models (``stats["last"]["mode"]`` names the regime):
+``_resident_split`` and (importable from here, defined in ``front_end.py``
+and ``fill.py``) ``front_end_consts`` and ``validate_filled_row`` are
+numpy-only copies, because the JAX file imports jax; the tests hold them
+equal to the originals. :class:`InferenceEngine` keeps the JAX engine's
+method names for its serving regimes, for single-ended and double-ended
+models (``stats["last"]["mode"]`` names the regime):
 
   interleaved (cold pass):
     host  : header scan -> (sr, transport) groups -> length-sorted batches,
             each padded to a geometric T bucket
     filler: one background thread decodes + reflect-pads batch j+1 into a
-            pinned staging slot (a ring of ``RING_SLOTS`` per transport)
-            while the main thread copies and runs batch j
+            pinned staging slot (a ring of ``RING_SLOTS`` per transport and
+            end) while the main thread copies and runs batch j, through the
+            engine's :class:`.fill.HostFill`
     device: copy stream: pinned slot -> device (non_blocking); compute
             stream, after the copy's event: mel stage (``mel_fn``, the fused
             DFT->mel kernel) -> seg+model stage (``seg_fn`` -> model)
@@ -26,7 +28,8 @@ double-ended models (``stats["last"]["mode"]`` names the regime):
             (``forward_ends``)
   cached: seg+model over the resident mel blocks (no decode, no upload, no
           front-end); runs of same-shape blocks are concatenated on the
-          device once and run as one (k*bs) batch ("fused" parts)
+          device once (entry mode "mel_fused") and run as one (k*bs) batch
+          per part, or, with ``fuse_pass=False``, batch by batch ("mel")
   cached_partial: a corpus over ``cache_mb`` keeps the batches that fit
           resident; the cold tail is re-scanned and re-filled every pass
 
@@ -57,7 +60,6 @@ import contextlib
 import math
 import os
 import sys
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as wait_futures
@@ -65,24 +67,16 @@ from concurrent.futures import wait as wait_futures
 import numpy as np
 import torch
 
-from ..audio import wav as wavio
-from ..audio.filters import mel_filterbank, padded_window
-from ..audio.melspec import pad_audio_for_batch
 from ..ops.dft_mel import fused_dft_mel
 from ..parallel.mesh import sum_rows
 from . import native
-from .front_end import frame_geometry, mel_fn, seg_fn
+from .fill import HostFill, n_wins_of, transport_kind, validate_filled_row  # noqa: F401
+from .front_end import frame_geometry, front_end_consts, mel_fn, seg_fn  # noqa: F401
 
-# Cached passes over plans of at most FUSE_WHOLE_MAX batches keep their mel
-# blocks in one flat device tensor (mode "mel_fused"); bigger plans keep one
-# concatenated block per part (mode "mel_fused_parts"). Both run the parts of
-# _fuse_plan_chunks. The names and the NISQA_FUSE_WHOLE_MAX knob follow the
-# JAX engine; outputs are the same either way.
-FUSE_WHOLE_MAX = int(os.environ.get("NISQA_FUSE_WHOLE_MAX", "32"))
 # per-part working-set budget (segment tensor + attention score estimate, bytes)
 _FUSE_CHUNK_BYTES = 512 * (1 << 20)
-# pinned staging slots per transport: the filler runs at most this many
-# batches of one transport ahead of the copies
+# pinned staging slots per transport and end: the filler runs at most this
+# many batches of one transport ahead of the copies
 RING_SLOTS = 3
 
 
@@ -139,50 +133,6 @@ class MsConfig:
         return math.ceil(full / self.seg_hop)
 
 
-def front_end_consts(ms: MsConfig, sr: int, transport: str = "f32"):
-    """Host-computed windowed-DFT + mel tensors (numpy float32).
-
-    The window, the librosa 1/32768 PCM16 scaling (transport='i16') and the
-    zero-padding of the n_fft frame are folded into the DFT weights; only
-    the DFT bins the mel filterbank reads are kept (rounded up to a multiple
-    of 128, as in the JAX package, so both compute over the same bins).
-    """
-    win = int(sr * ms.win_s)
-    n_fft = ms.n_fft
-
-    fb = mel_filterbank(int(sr), n_fft, ms.n_mels, 0.0, ms.fmax)  # (M, K)
-    nz = np.nonzero(fb.any(axis=0))[0]
-    k_hi = int(nz[-1]) + 1 if len(nz) else fb.shape[1]
-    k_keep = min(-(-k_hi // 128) * 128, fb.shape[1])
-
-    lpad = (n_fft - win) // 2
-    window = padded_window(win, n_fft).astype(np.float64)
-    scale = (1.0 / 32768.0) if transport == "i16" else 1.0
-    s_idx = lpad + np.arange(win)
-    wvals = window[s_idx] * scale
-    ang = -2.0 * np.pi * np.outer(s_idx, np.arange(k_keep)) / n_fft
-    return {
-        "w_re": (wvals[:, None] * np.cos(ang)).astype(np.float32),
-        "w_im": (wvals[:, None] * np.sin(ang)).astype(np.float32),
-        "fb_t": np.ascontiguousarray(fb[:, :k_keep].T),
-    }
-
-
-def validate_filled_row(ms: MsConfig, path, n, sr, sr_got=None):
-    """Post-fill sanity for natively-decoded rows: a file that decodes too
-    short for one segment raises the reference's 'Sample too short' error,
-    and a sample rate that changed between scan and fill raises too."""
-    if sr_got is not None and int(sr_got) != int(sr):
-        raise ValueError(
-            f"Error loading file {path}: sample rate changed since scan "
-            f"({sr_got} != {sr}) — file replaced mid-pass?"
-        )
-    try:
-        ms.n_wins(ms.n_frames(int(n), int(sr)))
-    except ValueError as e:
-        raise ValueError(f"Error loading file {path}: {e}") from None
-
-
 def _resident_split(items, bytes_of, cap):
     """The partial-caching greedy, shared by the cold pass's store (actual
     nbytes) and warmup's mirror (byte estimates): walk ``items`` in plan
@@ -232,48 +182,6 @@ def _nbytes(*tensors) -> int:
 _span = torch._C._profiler._RecordFunctionFast
 
 
-class _Slot:
-    """One host staging buffer of the ring: pinned on a CUDA engine.
-
-    The filler takes the slot (:meth:`acquire`) before it fills it; the main
-    thread gives it back (:meth:`release`) with the CUDA event recorded after
-    the host->device copy that reads it. The next :meth:`acquire` waits for
-    that event, so a slot is never refilled while its copy is in flight.
-    ``buf`` is flat and grows to the largest batch it has held (pinned
-    allocation is slow, so it is done once per size, not per batch).
-    """
-
-    def __init__(self, dtype, bs: int, pin: bool):
-        self.dtype, self.bs, self.pin = dtype, bs, pin
-        self.buf = None
-        self.n = torch.empty((bs,), dtype=torch.int32, pin_memory=pin)
-        self.copied = None
-        self._free = threading.Event()
-        self._free.set()
-
-    def acquire(self, buf_len: int):
-        """Wait until the slot is free and its last copy is done; returns
-        (buf (bs, buf_len), n (bs,)) numpy views of the pinned memory."""
-        self._free.wait()
-        self._free.clear()
-        if self.copied is not None:
-            self.copied.synchronize()
-            self.copied = None
-        numel = self.bs * buf_len
-        if self.buf is None or self.buf.numel() < numel:
-            self.buf = None
-            self.buf = torch.empty((numel,), dtype=self.dtype, pin_memory=self.pin)
-        return self.buf[:numel].numpy().reshape(self.bs, buf_len), self.n.numpy()
-
-    def rows(self, buf_len: int):
-        return self.buf[: self.bs * buf_len].view(self.bs, buf_len)
-
-    def release(self, event=None):
-        if event is not None:
-            self.copied = event
-        self._free.set()
-
-
 class InferenceEngine:
     """Batched predictor over audio paths for one device.
 
@@ -285,11 +193,12 @@ class InferenceEngine:
     float32 accumulation); None follows ``precision`` like the JAX engine
     ('exact' under 'highest', else 'fast'). ``dft_mel`` is the DFT->mel
     step; the default launches the CUDA kernel for device tensors.
-    ``fuse_pass``: None/True concatenate same-shape resident mel blocks for
-    cached passes; False runs cached passes batch by batch. ``cache_mb``:
-    device budget of the corpus mel cache (0 turns it off). ``mesh``: the
-    rank's :class:`..parallel.mesh.DataParallel` record (None: this process
-    alone); every rank of its group must make the same calls.
+    ``fuse_pass``: None or True (kept as True) concatenate same-shape
+    resident mel blocks for cached passes; False runs cached passes batch
+    by batch. ``cache_mb``: device budget of the corpus mel cache (0 turns
+    it off). ``mesh``: the rank's :class:`..parallel.mesh.DataParallel`
+    record (None: this process alone); every rank of its group must make
+    the same calls. ``fill``: the engine's :class:`.fill.HostFill`.
     """
 
     def __init__(self, model, ms: MsConfig, device, batch_size: int = 32,
@@ -302,6 +211,7 @@ class InferenceEngine:
         self.ms = ms
         self.batch_size = int(batch_size)
         self.num_workers = max(1, int(num_workers))
+        self.fill = HostFill(ms, self.device, self.num_workers, RING_SLOTS)
         if precision in (None, "default") and "lstm" in (
             model.cfg.get("td") or "", model.cfg.get("td_2") or ""
         ):
@@ -315,70 +225,18 @@ class InferenceEngine:
             raise ValueError(f"fe_precision must be 'exact' or 'fast', got {fe_precision!r}")
         self.fe_precision = fe_precision
         self.dft_mel = dft_mel
-        self.fuse_pass = fuse_pass
+        self.fuse_pass = fuse_pass is not False
         self.cache_mb = float(cache_mb)
         self._corpus_cache = {}  # fingerprint -> entry, in LRU order
         self._cache_bytes = 0
         self.stats = {"passes": 0, "files": 0, "cache_hits": 0, "last": None}
-        self._consts = {}
-        self._rings = {}  # transport, or (transport, "ref") -> [_Slot] * RING_SLOTS
-        self._ring_next = {}
         self._fill_ex = None
         self._cuda = self.device.type == "cuda"
-        self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
         # (start, end) CUDA timing events of the alignments, reused pass
         # after pass; the first _align_n of them are the current pass's
         self._align_events, self._align_n = [], 0
 
     # -- host side -----------------------------------------------------------
-
-    def _load_audio(self, path):
-        y, sr = wavio.read_wav(path, channel=self.ms.channel)
-        if self.ms.sr:
-            y = wavio.resample_kaiser(y, sr, int(self.ms.sr))
-            sr = int(self.ms.sr)
-        return y, sr
-
-    def _load_audio_transport(self, path):
-        """('i16', raw PCM16, sr) for plain 16-bit mono PCM without
-        resampling, else ('f32', float samples, sr)."""
-        ms = self.ms
-        if not ms.sr:
-            raw = wavio.read_wav_pcm16_mono(path)
-            if raw is not None and len(raw[0]) >= ms.n_fft // 2 + 2:
-                return ("i16", raw[0], raw[1])
-        y, sr = self._load_audio(path)
-        return ("f32", y, sr)
-
-    def _scan_transport(self, paths):
-        """Per-file transport descriptors: ('native', n, sr) / ('native_f32',
-        n, sr) from the C++ header scan (decoded later in the batch fill), or
-        a decoded tuple from :meth:`_load_audio_transport`."""
-        ms = self.ms
-        out = [None] * len(paths)
-        todo = list(range(len(paths)))
-        if not ms.sr and native.available() and paths:
-            n_s, sr_s, kind_s, status = native.scan_audio(paths, n_threads=self.num_workers)
-            min_n = ms.n_fft // 2 + 2
-            todo = []
-            for i in range(len(paths)):
-                if status[i] == 0 and n_s[i] >= min_n:
-                    tag = "native" if kind_s[i] == 0 else "native_f32"
-                    out[i] = (tag, int(n_s[i]), int(sr_s[i]))
-                else:
-                    todo.append(i)
-        if todo:
-            with ThreadPoolExecutor(self.num_workers) as ex:
-                for i, v in zip(todo, ex.map(self._load_audio_transport, (paths[i] for i in todo))):
-                    out[i] = v
-        return out
-
-    def _n_wins_kind(self, entry):
-        """(n_wins, transport kind) of one scanned file."""
-        tag, data, sr = entry
-        n = data if tag in ("native", "native_f32") else len(data)
-        ms = self.ms
-        return ms.n_wins(ms.n_frames(n, sr)), {"native": "i16", "native_f32": "f32"}.get(tag, tag)
 
     def _metas_for(self, audio, audio_ref=None):
         """Per-file (index, sr, n_wins, transport kind). A double-ended pair
@@ -386,16 +244,14 @@ class InferenceEngine:
         either end needs it; its ends must share a sample rate."""
         metas = []
         for i, entry in enumerate(audio):
-            sr = entry[2]
-            nw, kind = self._n_wins_kind(entry)
+            sr, kinds = entry[2], {transport_kind(entry)}
             if audio_ref is not None:
                 ref = audio_ref[i]
                 if ref[2] != sr:
                     raise ValueError(f"deg/ref sample rates differ for item {i}: {sr} != {ref[2]}")
-                nw_r, kind_r = self._n_wins_kind(ref)
-                nw = max(nw, nw_r)
-                kind = "f32" if "f32" in (kind, kind_r) else "i16"
-            metas.append((i, sr, nw, kind))
+                kinds.add(transport_kind(ref))
+            metas.append((i, sr, n_wins_of(self.ms, i, audio, audio_ref),
+                          "f32" if "f32" in kinds else "i16"))
         return metas
 
     def _plan_for(self, metas):
@@ -434,9 +290,9 @@ class InferenceEngine:
         """(degraded-end audio, reference-end audio or None, plan); under a
         mesh the plan is the rank's share, ``plan[rank::W]``."""
         if paths_ref is None:
-            audio, audio_ref = self._scan_transport(paths), None
+            audio, audio_ref = self.fill.scan(paths), None
         else:  # both ends in one scan
-            both = self._scan_transport(paths + paths_ref)
+            both = self.fill.scan(paths + paths_ref)
             audio, audio_ref = both[: len(paths)], both[len(paths) :]
         plan = self._plan_for(self._metas_for(audio, audio_ref))
         if self.mesh is not None:
@@ -449,102 +305,6 @@ class InferenceEngine:
         paths = list(paths)
         return self._scan_plan(paths, self._check_ref(paths, paths_ref))[2]
 
-    def _ends(self) -> int:
-        return 2 if self.model.double_ended else 1
-
-    def _host_buf(self, kind: str, end: int = 0) -> _Slot:
-        """The next staging slot of the ring of ``kind`` and ``end`` (0 the
-        degraded end, 1 the reference; taken in plan order by the main
-        thread, filled in the same order by the filler)."""
-        key = (kind, "ref") if end else kind
-        ring = self._rings.get(key)
-        if ring is None:
-            dtype = torch.int16 if kind == "i16" else torch.float32
-            ring = self._rings[key] = [_Slot(dtype, self.batch_size, self._cuda)
-                                       for _ in range(RING_SLOTS)]
-            self._ring_next[key] = 0
-        j = self._ring_next[key]
-        self._ring_next[key] = (j + 1) % RING_SLOTS
-        return ring[j]
-
-    def _make_batch(self, slot: _Slot, chunk, audio, paths, buf_len, kind, n_threads=None):
-        """Decode + reflect-pad one batch into ``slot`` (runs on the filler
-        thread) with ``n_threads`` decode threads (None: ``num_workers``).
-        Rows past the chunk take row 0's length (finite, dropped after the
-        forward). Returns the host seconds spent waiting for the slot and
-        decoding (the native fill call, and the rows written in Python)."""
-        pad, ms = self.ms.n_fft // 2, self.ms
-        n_threads = n_threads or self.num_workers
-        t = time.perf_counter()
-        buf, n = slot.acquire(buf_len)
-        slot_s, decode_s = time.perf_counter() - t, 0.0
-        if kind == "i16":
-            # raw PCM16 transport: [left reflect][samples][right reflect]
-            # [bounded garbage]. No zeroing: int16 garbage is bounded, gives
-            # finite mels, and every garbage frame/segment is masked
-            # downstream by n_frames/n_wins.
-            tags = ("native",)
-        else:
-            buf.fill(0)
-            tags = ("native", "native_f32")
-        native_items = [(j, i) for j, i in enumerate(chunk) if audio[i][0] in tags]
-        if native_items:
-            # C++ decode + reflect-pad fill, threaded, GIL-free. When the
-            # whole chunk is native (the common case) fill the batch rows in
-            # place; otherwise use a scratch block.
-            all_native = len(native_items) == len(chunk)
-            dtype = np.int16 if kind == "i16" else np.float32
-            target = buf[: len(chunk)] if all_native else np.zeros(
-                (len(native_items), buf_len), dtype)
-            src = [paths[i] for _, i in native_items]
-            t = time.perf_counter()
-            if kind == "i16":
-                ns, srs, status = native.fill_batch_i16(src, target, pad, n_threads=n_threads)
-            else:
-                ns, srs, status = native.fill_batch_f32(
-                    src, target, pad, channel=ms.channel, n_threads=n_threads)
-            decode_s += time.perf_counter() - t
-            for row, (j, i) in enumerate(native_items):
-                if status[row] == 0:
-                    validate_filled_row(ms, paths[i], ns[row], audio[i][2], srs[row])
-                    if not all_native:
-                        buf[j] = target[row]
-                    n[j] = ns[row]
-                    continue
-                # rare race (file changed since scan): decode in Python below
-                t = time.perf_counter()
-                x, sr_got = self._load_audio(paths[i])
-                decode_s += time.perf_counter() - t
-                validate_filled_row(ms, paths[i], len(x), audio[i][2], sr_got)
-                if kind == "i16":
-                    x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
-                audio[i] = (kind, x, audio[i][2])
-        t = time.perf_counter()
-        for j, i in enumerate(chunk):
-            tag, x = audio[i][0], audio[i][1]
-            if tag in ("native", "native_f32"):
-                continue
-            ln = len(x)
-            if kind == "i16":
-                buf[j, :pad] = x[pad:0:-1]
-                # under seg_hop subsampling a file's ceil-remainder tail may
-                # extend past the bucket's read span: clamp to the buffer; n
-                # keeps the true count so device masks match the plan
-                w = min(ln, buf_len - pad)
-                buf[j, pad : pad + w] = x[:w]
-                take = min(pad, buf_len - (pad + ln))
-                if take > 0:
-                    buf[j, pad + ln : pad + ln + take] = x[ln - 2 : ln - 2 - take : -1]
-            else:
-                if tag == "i16":
-                    x = x.astype(np.float32) / 32768.0
-                padded = pad_audio_for_batch(x, ms.n_fft, ln + ms.n_fft)
-                w = min(len(padded), buf_len)
-                buf[j, :w] = padded[:w]
-            n[j] = ln
-        n[len(chunk):] = n[0]
-        return slot_s, decode_s + time.perf_counter() - t
-
     def _fill_pool(self):
         """One background filler thread: fills batch j+1 while the main
         thread copies and dispatches batch j (the native fill releases the
@@ -555,43 +315,11 @@ class InferenceEngine:
 
     # -- device side ---------------------------------------------------------
 
-    def _consts_for(self, sr: int, kind: str):
-        key = (sr, kind)
-        if key not in self._consts:
-            self._consts[key] = {
-                k: torch.from_numpy(v).to(self.device)
-                for k, v in front_end_consts(self.ms, sr, kind).items()
-            }
-        return self._consts[key]
-
-    def _upload(self, slot: _Slot, buf_len: int):
-        """Host slot -> device (audio, n int64), then give the slot back.
-
-        On CUDA the copy is non_blocking from pinned memory on the copy
-        stream; the compute stream waits on the copy's event, and the device
-        tensors are marked as used by the compute stream."""
-        host = slot.rows(buf_len)
-        if not self._cuda:
-            audio, n = host.clone(), slot.n.to(torch.int64)
-            slot.release()
-            return audio, n
-        cur = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            audio = host.to(self.device, non_blocking=True)
-            n32 = slot.n.to(self.device, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(self._copy_stream)
-        slot.release(copied)
-        cur.wait_event(copied)
-        audio.record_stream(cur)
-        n32.record_stream(cur)
-        return audio, n32.to(torch.int64)
-
     def _mel(self, gkey, audio, n):
         """Mel stage (the JAX engine's ``_pipeline`` front half): audio ->
         mel dB (B, F, M), kept for the corpus cache."""
         sr, bucket, kind = gkey
-        return mel_fn(self.ms, sr, bucket, self._consts_for(sr, kind), audio, n,
+        return mel_fn(self.ms, sr, bucket, self.fill.consts(sr, kind), audio, n,
                       fast=self.fe_precision == "fast", dft_mel=self.dft_mel)
 
     def _seg_model(self, gkey, *blocks):
@@ -646,10 +374,10 @@ class InferenceEngine:
         if audio_ref is not None:
             timings["fill_decode_ref_s"] = 0.0
 
-        def fill(slot, chunk, buf_len, kind, end):
+        def fill_end(slot, chunk, buf_len, kind, end):
             tf = time.perf_counter()
             end_audio, end_paths = ends[end]
-            slot_s, decode_s = self._make_batch(slot, chunk, end_audio, end_paths, buf_len, kind)
+            slot_s, decode_s = self.fill.batch(slot, chunk, end_audio, end_paths, buf_len, kind)
             timings["fill_slot_s"] += slot_s
             timings["fill_decode_s"] += decode_s
             if end:
@@ -662,8 +390,8 @@ class InferenceEngine:
         jobs = []
         for gkey, chunk in batches:
             buf_len = frame_geometry(self.ms, gkey[0], gkey[1])[4]
-            slots = [self._host_buf(gkey[2], e) for e in range(len(ends))]
-            futs = [self._fill_pool().submit(fill, slot, chunk, buf_len, gkey[2], e)
+            slots = [self.fill.slot(gkey[2], e, self.batch_size) for e in range(len(ends))]
+            futs = [self._fill_pool().submit(fill_end, slot, chunk, buf_len, gkey[2], e)
                     for e, slot in enumerate(slots)]
             jobs.append((slots, buf_len, futs))
         ys, kept = [], []
@@ -683,7 +411,7 @@ class InferenceEngine:
                         first_wait_s = td - tw
                         if t0 is not None:
                             timings["head_s"] = td - t0
-                    audio_d, n_d = self._upload(slot, buf_len)
+                    audio_d, n_d = self.fill.upload(slot, buf_len)
                     blocks += [self._mel(gkey, audio_d, n_d), n_d]
                     dispatch_s += time.perf_counter() - td
                 td = time.perf_counter()
@@ -771,9 +499,9 @@ class InferenceEngine:
                                "cold": cold_tail, "bytes": used})
 
     def _fuse_cached(self, plan):
-        """fuse_pass None/True: cached passes run concatenated parts; a
+        """With ``fuse_pass`` cached passes run concatenated parts; a
         single-batch plan has nothing to concatenate."""
-        return self.fuse_pass is not False and len(plan) > 1
+        return self.fuse_pass and len(plan) > 1
 
     def _fuse_plan_chunks(self, plan):
         """Partition a plan into fused parts: maximal runs of consecutive
@@ -794,11 +522,12 @@ class InferenceEngine:
             i = j
         return chunks
 
-    def _upgrade_to_fused_parts(self, fp, hit):
-        """Each part's resident blocks are concatenated on the device into
-        one (k*bs, F, M) block per end (mode 'mel_fused_parts'); a cached
-        pass then runs one seg+model call per part at batch k*bs. Per-sample
-        compute is independent, so the outputs equal k calls of bs."""
+    def _upgrade_to_fused(self, fp, hit):
+        """One-time upgrade of a fully resident entry: each part's blocks
+        are concatenated on the device into one (k*bs, F, M) block per end
+        (mode 'mel_fused'); a cached pass then runs one seg+model call per
+        part at batch k*bs. Per-sample compute is independent, so the
+        outputs equal k calls of bs."""
         parts = []
         for idxs in self._fuse_plan_chunks(hit["plan"]):
             batches = [hit["batches"][i] for i in idxs]
@@ -806,40 +535,8 @@ class InferenceEngine:
                       for xs in zip(*(b[2:] for b in batches))]
             parts.append((batches[0][0], *blocks))
         return self._cache_replace(fp, {
-            "mode": "mel_fused_parts", "plan": hit["plan"], "parts": parts,
+            "mode": "mel_fused", "plan": hit["plan"], "parts": parts,
             "bytes": sum(_nbytes(*part[1:]) for part in parts)})
-
-    def _upgrade_to_mel_fused(self, fp, hit):
-        """One-time upgrade of a fully resident entry: plans of at most
-        FUSE_WHOLE_MAX batches move their mel blocks into one flat device
-        tensor (mode 'mel_fused'), one row per end with the same offsets,
-        whose parts are views; bigger plans upgrade to concatenated parts."""
-        plan = hit["plan"]
-        if len(plan) > FUSE_WHOLE_MAX:
-            return self._upgrade_to_fused_parts(fp, hit)
-        batches = hit["batches"]
-        ends = self._ends()
-        flat = torch.cat([b[2 + 2 * e].reshape(-1) for e in range(ends) for b in batches])
-        flat = flat.view(ends, -1)
-        ns = torch.cat([b[3 + 2 * e] for e in range(ends) for b in batches]).view(ends, -1)
-        offsets = np.cumsum([0] + [b[2].numel() for b in batches])
-        bs, M = self.batch_size, self.ms.n_mels
-        parts = []
-        for idxs in self._fuse_plan_chunks(plan):
-            i, j = idxs[0], idxs[-1] + 1
-            gkey = plan[i][0]
-            blocks = []
-            for e in range(ends):
-                blocks += [flat[e, int(offsets[i]) : int(offsets[j])].view(
-                    (j - i) * bs, self.ms.frames_for_bucket(gkey[1]), M), ns[e, i * bs : j * bs]]
-            parts.append((gkey, *blocks))
-        return self._cache_replace(fp, {
-            "mode": "mel_fused", "plan": plan, "flat": flat, "ns": ns, "parts": parts,
-            "bytes": _nbytes(flat, ns)})
-
-    def _run_fused_parts(self, hit):
-        """One seg+model call per part, outputs in plan order."""
-        return [self._seg_model(*part) for part in hit["parts"]]
 
     def _partial_cached_pass(self, hit, paths, paths_ref, N, fetch, timings):
         """Cache hit for a corpus that only partly fits ``cache_mb``: the
@@ -859,7 +556,7 @@ class InferenceEngine:
 
         def tail(end_paths):
             out = [None] * N
-            for i, e in zip(tail_idx, self._scan_transport([end_paths[i] for i in tail_idx])):
+            for i, e in zip(tail_idx, self.fill.scan([end_paths[i] for i in tail_idx])):
                 out[i] = e
             return out
 
@@ -934,7 +631,7 @@ class InferenceEngine:
             # segment rows the trunk runs (both ends of every batch row at
             # its bucket) and those of the ends' own n_wins
             timings["trunk_rows"] = 2 * self.batch_size * sum(gkey[1] for gkey, _ in plan)
-            timings["own_rows"] = sum(self._n_wins_kind(end[i])[0] for end in (audio, audio_ref)
+            timings["own_rows"] = sum(n_wins_of(self.ms, i, end) for end in (audio, audio_ref)
                                       for _, chunk in plan for i in chunk)
         ys, kept = self._run_cold(plan, audio, paths, timings, fp is not None, audio_ref, paths_ref,
                                   t0=t0)
@@ -957,11 +654,11 @@ class InferenceEngine:
             return (lambda: out) if fetch == "async" else out
         td = time.perf_counter()
         if hit["mode"] == "mel" and self._fuse_cached(hit["plan"]):
-            hit = self._upgrade_to_mel_fused(fp, hit)
+            hit = self._upgrade_to_fused(fp, hit)
         if hit["mode"] == "mel":
             ys = [self._seg_model(gkey, *blocks) for gkey, _, *blocks in hit["batches"]]
         else:
-            ys = self._run_fused_parts(hit)
+            ys = [self._seg_model(*part) for part in hit["parts"]]
         timings["dispatch_s"] = time.perf_counter() - td
         out = self._collect(ys, [chunk for _, chunk in hit["plan"]], N, fetch, timings)
         self._note_pass("cached", N, len(hit["plan"]), t0, t0, time.perf_counter(), timings)
@@ -1084,7 +781,7 @@ class InferenceEngine:
         if not paths:
             return []
         ms, bs, M = self.ms, self.batch_size, self.ms.n_mels
-        ends = self._ends()
+        ends = 2 if self.model.double_ended else 1
         plan = self._scan_plan(paths, paths_ref)[2]
         gkeys = sorted({gkey for gkey, _ in plan})
 
@@ -1114,7 +811,7 @@ class InferenceEngine:
             for kind in {gkey[2] for gkey in gkeys}:
                 longest = max(lens[g] for g in gkeys if g[2] == kind)
                 for end in range(ends):
-                    ring = [self._host_buf(kind, end) for _ in range(RING_SLOTS)]
+                    ring = [self.fill.slot(kind, end, bs) for _ in range(RING_SLOTS)]
                     for slot in ring:
                         slot.acquire(longest)
                     for slot in ring:
@@ -1122,11 +819,11 @@ class InferenceEngine:
             for gkey in gkeys:
                 blocks = []
                 for end in range(ends):
-                    slot = self._host_buf(gkey[2], end)
+                    slot = self.fill.slot(gkey[2], end, bs)
                     buf, n = slot.acquire(lens[gkey])
                     buf.fill(0)
                     n.fill(full_n(gkey[0], gkey[1]))
-                    audio_d, n_d = self._upload(slot, lens[gkey])
+                    audio_d, n_d = self.fill.upload(slot, lens[gkey])
                     blocks += [self._mel(gkey, audio_d, n_d), n_d]
                 self._seg_model(gkey, *blocks)
                 warmed.append(("cold", gkey, bs))

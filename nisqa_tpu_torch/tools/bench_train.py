@@ -115,8 +115,9 @@ def final_val(out_dir: str) -> dict:
 
 
 def run(opts) -> dict:
+    from ..data.fill import n_samples
     from ..model import NisqaTorch
-    from ..train.loop import _bias_losses, _n_of
+    from ..train.loop import _bias_losses
 
     device = resolve_device(opts.device)
     n_files = opts.files or (16 if opts.tts else 96)
@@ -145,7 +146,7 @@ def run(opts) -> dict:
 
         eng = runner.train_engine
         epoch_s = [h["wall_s"] for h in eng.history]
-        train_audio_s = sum(_n_of(e) / e[2] for e in eng._entries(runner.ds_train.paths()))
+        train_audio_s = sum(n_samples(e) / e[2] for e in eng._entries(runner.ds_train.paths()))
         bias = _bias_losses(runner, 1)
         idle = measure.idle_of(lambda: eng.run_epoch(runner.ds_train, bias, args["tr_lr"],
                                                      len(eng.history), bs), device)

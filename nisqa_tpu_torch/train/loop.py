@@ -13,8 +13,9 @@ takes its segments from one of two fills:
   host fill (:meth:`TrainEngine._batch`): decode + reflect-pad the batch
           into a pinned staging slot (the i16 transport when every file is
           plain PCM16 mono and the model is single-ended, float32
-          otherwise), upload non_blocking, with the serving engine's fill
-          and copy; then ``mel_fn`` (the DFT->mel kernel in exact mode) and
+          otherwise), upload non_blocking, through the engine's own
+          :class:`..data.fill.HostFill` (the serving engine fills through
+          one too); then ``mel_fn`` (the DFT->mel kernel in exact mode) and
           ``seg_fn`` under ``torch.no_grad()`` -- audio is data, no
           gradient reaches the front-end;
   device corpus (``tr_ds_to_memory``, :meth:`TrainEngine._gather`): the
@@ -62,8 +63,9 @@ import numpy as np
 import torch
 
 from ..data.dataset import Table
+from ..data.fill import HostFill, bucket_of, n_samples, n_wins_of
 from ..data.front_end import frame_geometry, mel_fn, seg_fn
-from ..data.pipeline import _Slot, matmul_precision
+from ..data.pipeline import matmul_precision
 from ..eval.report import eval_results
 from ..ops.dft_mel import fused_dft_mel
 from ..parallel.mesh import all_reduce_grads, barrier, shard_rows, sum_rows
@@ -72,20 +74,13 @@ from .checkpoint import load_train_state, save_train_state
 from .early_stop import EarlyStopper, EarlyStopperDim
 from .plateau import ReduceLROnPlateau
 
-# pinned staging slots per (transport, end): a slot is refilled only after
-# the copy that read it is done, so two let the fill of step j+1 start while
-# step j's copy may still be in flight
+# pinned staging slots per (transport, end, rows): a slot is refilled only
+# after the copy that read it is done, so two let the fill of step j+1 start
+# while step j's copy may still be in flight
 SLOTS = 2
 # rows per chunk of the device corpus's build, and the granularity of a
 # group's resident head
 CHUNK = 64
-
-
-def _n_of(e):
-    """Sample count of a transport entry: header-scanned ('native',
-    'native_f32') and released ('meta') entries carry n, decoded ones the
-    samples."""
-    return e[1] if e[0] in ("native", "native_f32", "meta") else len(e[1])
 
 
 def nan_mse(pred, target, count=None):
@@ -140,7 +135,8 @@ class TrainEngine:
         self.model.set_dropout_generator(self.generator)
         self.dp = runner.dp
         self.model.set_process_group(self.dp.group if self.dp is not None else None)
-        self._rings = {}
+        # the scan and the step fill run tr_num_workers threads, as serving does
+        self.fill = HostFill(self.ms, self.device, int(args.get("tr_num_workers") or 8), SLOTS)
         self.steps = 0  # train steps run (one per batch and sample rate, two for a split group)
         # per epoch: steps, files, wall_s, the loss terms, the loss (and build_s, val_s)
         self.history = []
@@ -160,28 +156,17 @@ class TrainEngine:
     # -- host side -------------------------------------------------------------
 
     def _entries(self, paths):
-        """Transport descriptors through the serving engine's header scan.
-        Under ``tr_ds_to_memory`` the list is scanned once and kept: its
-        decoded fallback tuples are the host audio of the rows that do not
-        go resident, and resident rows become ('meta', n, sr) stubs."""
+        """Transport entries from the fill's header scan. Under
+        ``tr_ds_to_memory`` the list is scanned once and kept: its decoded
+        fallback tuples are the host audio of the rows that do not go
+        resident, and resident rows become ('meta', n, sr) stubs."""
         key = tuple(paths)
         hit = self._scans.get(key)
         if hit is None:
-            hit = self.runner._engine()._scan_transport(list(paths))
+            hit = self.fill.scan(list(paths))
             if self.to_memory:
                 self._scans[key] = hit
         return hit
-
-    def _slot(self, kind: str, end: int, bs: int) -> _Slot:
-        key = (kind, end, bs)
-        ring = self._rings.get(key)
-        if ring is None:
-            dtype = torch.int16 if kind == "i16" else torch.float32
-            ring = self._rings[key] = [[_Slot(dtype, bs, self.device.type == "cuda")
-                                        for _ in range(SLOTS)], 0]
-        slots, j = ring
-        ring[1] = (j + 1) % SLOTS
-        return slots[j]
 
     def _to_device(self, a: np.ndarray):
         """A host array on the device; on CUDA through pinned memory and
@@ -230,10 +215,7 @@ class TrainEngine:
         budget = int(self.cache_mb * (1 << 20))
         out = {}
         for sr, gidx in sorted(by_sr.items()):
-            nw = [ms.n_wins(ms.n_frames(_n_of(entries[i]), sr)) for i in gidx]
-            if entries_ref is not None:
-                nw = [max(a, ms.n_wins(ms.n_frames(_n_of(entries_ref[i]), sr)))
-                      for a, i in zip(nw, gidx)]
+            nw = [n_wins_of(ms, i, entries, entries_ref) for i in gidx]
             # raises the reference's ms_max_segments error for an over-long file
             bucket = ms.bucket_for(max(nw))
             n_rows = -(-len(gidx) // CHUNK) * CHUNK
@@ -270,18 +252,17 @@ class TrainEngine:
             out[sr] = entry
             budget -= n_rows * row_bytes
             for i in gidx:
-                entries[i] = ("meta", _n_of(entries[i]), sr)
+                entries[i] = ("meta", n_samples(entries[i]), sr)
                 if entries_ref is not None:
-                    entries_ref[i] = ("meta", _n_of(entries_ref[i]), sr)
-        # the build's staging slots are not needed again
-        self._rings = {k: v for k, v in self._rings.items() if k[2] != CHUNK}
+                    entries_ref[i] = ("meta", n_samples(entries_ref[i]), sr)
+        self.fill.drop(CHUNK)  # the build's staging slots are not needed again
         return out
 
     def _mel_corpus(self, entries, paths, gidx, sr, bucket, n_rows, want_i16, end):
         """Streams one group of one end through the front-end in ``CHUNK``-row
-        chunks: the serving engine's ``_make_batch`` fills a ``CHUNK``-row
-        pinned slot (i16 when ``want_i16`` and every file of the chunk is
-        plain PCM16 mono, else f32), ``_upload`` copies it, and ``mel_fn``
+        chunks: the fill decodes into a ``CHUNK``-row pinned slot (i16 when
+        ``want_i16`` and every file of the chunk is plain PCM16 mono, else
+        f32) with ``preload_threads`` threads and uploads it, and ``mel_fn``
         (exact mode, "highest") writes the chunk's rows into the corpus.
         Only the mel rows are kept; each chunk's audio is dropped before the
         next. The pad rows past the group are never gathered. Built under
@@ -290,8 +271,7 @@ class TrainEngine:
 
         Returns (mel (n_rows, F, n_mels) float32, n (n_rows,) int64 sample
         counts, whether every chunk took i16)."""
-        ms = self.ms
-        eng = self.runner._engine()
+        ms, fill = self.ms, self.fill
         buf_len = frame_geometry(ms, sr, bucket)[4]
         mel = torch.empty((n_rows, ms.frames_for_bucket(bucket), ms.n_mels), device=self.device)
         n = torch.zeros((n_rows,), dtype=torch.int64, device=self.device)
@@ -301,11 +281,11 @@ class TrainEngine:
                 rows = gidx[s : s + CHUNK]
                 kind = "i16" if want_i16 and all(entries[i][0] == "native" for i in rows) else "f32"
                 all_i16 = all_i16 and kind == "i16"
-                slot = self._slot(kind, end, CHUNK)
-                eng._make_batch(slot, rows, entries, paths, buf_len, kind,
-                                n_threads=self.preload_threads)
-                audio, cn = eng._upload(slot, buf_len)
-                mel[s : s + CHUNK] = mel_fn(ms, sr, bucket, eng._consts_for(sr, kind), audio, cn,
+                slot = fill.slot(kind, end, CHUNK)
+                fill.batch(slot, rows, entries, paths, buf_len, kind,
+                           n_threads=self.preload_threads)
+                audio, cn = fill.upload(slot, buf_len)
+                mel[s : s + CHUNK] = mel_fn(ms, sr, bucket, fill.consts(sr, kind), audio, cn,
                                             fast=False, dft_mel=self.dft_mel)
                 n[s : s + len(rows)] = cn[: len(rows)]
                 del audio, cn
@@ -313,22 +293,13 @@ class TrainEngine:
 
     # -- one step ----------------------------------------------------------------
 
-    def _bucket(self, idx, entries, entries_ref):
-        """The T bucket of the longest file (a pair's longer end) of ``idx``."""
-        ms, sr = self.ms, entries[idx[0]][2]
-        ends = [entries] + ([entries_ref] if entries_ref is not None else [])
-        return ms.bucket_for(max(ms.n_wins(ms.n_frames(_n_of(e[i]), sr))
-                                 for e in ends for i in idx))
-
     def _batch(self, idx, paths, paths_ref, entries, entries_ref, bs, kind, bucket=None):
         """Fill, upload and front-end one group of files (one sample rate):
         returns [(segs, n_wins)] per end on the device, at ``bucket`` (None:
-        the bucket of ``idx``'s longest file). The serving engine's
-        ``_make_batch`` fills the slot (native decode, a file it misses
-        decoded in Python) and its ``_upload`` copies it; the rows past the
-        group are dropped."""
-        ms = self.ms
-        eng = self.runner._engine()
+        the bucket of ``idx``'s longest file). The fill decodes into the
+        slot (native decode, a file it misses decoded in Python) and uploads
+        it; the rows past the group are dropped."""
+        ms, fill = self.ms, self.fill
         sr = entries[idx[0]][2]
         ends = [(paths, entries)] + ([(paths_ref, entries_ref)] if paths_ref is not None else [])
         for end_paths, end_entries in ends:
@@ -338,15 +309,15 @@ class TrainEngine:
                         f"host audio for device-resident row {end_paths[i]} was released -- "
                         "this row should be served from the mel corpus")
         if bucket is None:
-            bucket = self._bucket(idx, entries, entries_ref)
+            bucket = bucket_of(ms, idx, entries, entries_ref)
         buf_len = frame_geometry(ms, sr, bucket)[4]
         blocks = []
         for end, (end_paths, end_entries) in enumerate(ends):
-            slot = self._slot(kind, end, bs)
-            eng._make_batch(slot, idx, end_entries, end_paths, buf_len, kind)
-            audio, n = eng._upload(slot, buf_len)
+            slot = fill.slot(kind, end, bs)
+            fill.batch(slot, idx, end_entries, end_paths, buf_len, kind)
+            audio, n = fill.upload(slot, buf_len)
             blocks.append((audio[: len(idx)], n[: len(idx)]))
-        consts = eng._consts_for(sr, kind)
+        consts = fill.consts(sr, kind)
         # the front-end is pinned to float32 whatever tr_precision says
         with torch.no_grad(), matmul_precision("highest"):
             return [seg_fn(ms, sr, bucket, mel_fn(ms, sr, bucket, consts, audio, n, fast=False,
@@ -476,7 +447,7 @@ class TrainEngine:
                     kind = ("i16" if paths_ref is None
                             and all(entries[i][0] == "native" for i in filled) else "f32")
                     # every rank's share takes the whole group's bucket
-                    bucket = self._bucket(filled, entries, entries_ref)
+                    bucket = bucket_of(self.ms, filled, entries, entries_ref)
                     term.append(self._step(filled, y_all, bias_losses, lambda rows: self._batch(
                         rows, paths, paths_ref, entries, entries_ref, batch_size, kind, bucket)))
                 terms.append(term)
@@ -626,9 +597,11 @@ def _bias_losses(runner, k):
 def _validate(runner, engine):
     """The validation pass through the serving engine (which runs it in
     eval mode and restores the model's mode); its wall time goes to the
-    epoch's history entry."""
+    epoch's history entry. The model leaves in train mode, as it came: the
+    serving engine, built by the first validation, sets eval mode then."""
     t0 = time.perf_counter()
     y_val_hat = runner._engine().predict_paths(runner.ds_val.paths(), runner.ds_val.paths_ref())
+    runner.model.train()
     engine.history[-1]["val_s"] = time.perf_counter() - t0
     runner.ds_val.write_predictions(y_val_hat)
 

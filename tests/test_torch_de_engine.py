@@ -100,7 +100,7 @@ def test_every_regime_equals_the_cold_pass(pairs, cold, monkeypatch):
     warmed = eng.warmup(deg, ref)
     assert {g for s, g, _ in warmed if s == "cold"} == {g for g, _ in plan}
     assert {g for s, g, _ in warmed if s == "seg"} == {g for g, _ in plan}
-    assert sorted(eng._rings, key=str) == [("f32", "ref"), ("i16", "ref"), "f32", "i16"]
+    assert sorted(eng.fill.rings) == [("f32", 0, 3), ("f32", 1, 3), ("i16", 0, 3), ("i16", 1, 3)]
     close(eng.predict_paths(deg, ref))
     assert eng.stats["last"]["mode"] == "interleaved"
     entry = next(iter(eng._corpus_cache.values()))
@@ -108,7 +108,9 @@ def test_every_regime_equals_the_cold_pass(pairs, cold, monkeypatch):
     close(eng.predict_paths(deg, ref))
     entry = next(iter(eng._corpus_cache.values()))
     assert eng.stats["last"]["mode"] == "cached" and entry["mode"] == "mel_fused"
-    assert entry["flat"].shape[0] == 2 and entry["ns"].shape == (2, 3 * len(plan))
+    assert all(len(p) == 5 and p[1].shape == p[3].shape and p[2].shape == p[4].shape
+               for p in entry["parts"])
+    assert sum(p[2].shape[0] for p in entry["parts"]) == 3 * len(plan)
     handles = [eng.predict_paths(deg, ref, fetch="async") for _ in range(2)]
     for h in handles:
         close(h())
@@ -120,15 +122,15 @@ def test_every_regime_equals_the_cold_pass(pairs, cold, monkeypatch):
     assert next(iter(per_batch._corpus_cache.values()))["mode"] == "mel"
 
     # one pair per batch: consecutive batches of one shape fuse into parts
-    # of two batches, as views of the flat block and as concatenated parts
-    for fuse_whole_max, mode in ((pl.FUSE_WHOLE_MAX, "mel_fused"), (1, "mel_fused_parts")):
-        monkeypatch.setattr(pl, "FUSE_WHOLE_MAX", fuse_whole_max)
+    # of two batches, and into a part per batch under a budget of none
+    for cap, rows in ((pl._FUSE_CHUNK_BYTES, [1, 1, 1, 1, 2, 2]), (1, [1] * 8)):
+        monkeypatch.setattr(pl, "_FUSE_CHUNK_BYTES", cap)
         ones = _engine(ckpt, batch_size=1, cache_mb=64)
         close(ones.predict_paths(deg, ref))
         close(ones.predict_paths(deg, ref))
         entry = next(iter(ones._corpus_cache.values()))
-        assert entry["mode"] == mode and all(len(p) == 5 for p in entry["parts"])
-        assert sorted(p[1].shape[0] for p in entry["parts"]) == [1, 1, 1, 1, 2, 2]
+        assert entry["mode"] == "mel_fused" and all(len(p) == 5 for p in entry["parts"])
+        assert sorted(p[1].shape[0] for p in entry["parts"]) == rows
         assert all(p[1].shape == p[3].shape for p in entry["parts"])
 
     # about half the blocks resident: the cold tail re-scans both ends

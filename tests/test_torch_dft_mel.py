@@ -20,7 +20,7 @@ import torch
 
 from nisqa_tpu.ops.pallas_mel import fused_dft_mel as pallas_dft_mel, pad_consts_for_pallas
 from nisqa_tpu_torch.data import pipeline as tp
-from nisqa_tpu_torch.data.front_end import mel_fn
+from nisqa_tpu_torch.data.front_end import front_end_consts, mel_fn
 from nisqa_tpu_torch.ops import dft_mel as dm
 from tests.test_e2e import TINY_ARGS
 from tests.test_torch_front_end import YAML_MS
@@ -43,7 +43,7 @@ MODE_IDS = ["exact", "fast"]
 
 
 def _consts(args, sr):
-    c = tp.front_end_consts(tp.MsConfig(args), sr, "i16")
+    c = front_end_consts(tp.MsConfig(args), sr, "i16")
     return {k: torch.from_numpy(v) for k, v in c.items()}
 
 

@@ -3,7 +3,8 @@
 Mirrors the single-ended cases of ``tests/test_engine_cache.py`` against
 ``nisqa_tpu_torch``'s engine: the batching plan, the device-resident corpus
 mel cache (hit, invalidation, off, LRU eviction, partial residency), the
-fused cached passes (whole-plan ``mel_fused`` and ``mel_fused_parts``),
+fused cached pass (``mel_fused``: one part, or several under a smaller
+part budget),
 ``warmup``, ``fetch="async"`` and ``stats``; then the filler thread and its
 staging ring. Every regime is held within 1e-3 of the JAX engine at
 "highest"; on the CPU fused and per-batch passes agree within 1e-6 and
@@ -64,7 +65,7 @@ def test_plan_is_one_exec_per_chunk(tmp_path, ckpt):
     names = _write_corpus(tmp_path, n=7)
     paths = [str(tmp_path / n) for n in names]
     eng = _engine(ckpt, batch_size=3)
-    metas = eng._metas_for(eng._scan_transport(paths))
+    metas = eng._metas_for(eng.fill.scan(paths))
     plan = eng._plan_for(metas)
     assert len(plan) == 3  # ceil(7/3)
     nw = {m[0]: m[2] for m in metas}
@@ -90,8 +91,8 @@ def test_cache_hit_identical_and_skips_decode(tmp_path, ckpt, monkeypatch, fuse_
         raise AssertionError("decode on a cache hit")
 
     # a hit scans nothing, fills nothing and decodes nothing
-    monkeypatch.setattr(eng, "_scan_transport", boom)
-    monkeypatch.setattr(eng, "_make_batch", boom)
+    monkeypatch.setattr(eng.fill, "scan", boom)
+    monkeypatch.setattr(eng.fill, "batch", boom)
     monkeypatch.setattr(pl.native, "fill_batch_i16", boom)
     y2 = eng.predict_paths(paths)
     y3 = eng.predict_paths(paths)
@@ -149,6 +150,7 @@ def test_fuse_pass_true_is_alias_of_default(tmp_path, ckpt):
     paths = [str(tmp_path / n) for n in names]
     y0 = _engine(ckpt, batch_size=2, cache_mb=0).predict_paths(paths)
     eng = _engine(ckpt, batch_size=2, cache_mb=256, fuse_pass=True)
+    assert eng.fuse_pass is True and _engine(ckpt, fuse_pass=None).fuse_pass is True
     eng.warmup(paths)
     y1 = eng.predict_paths(paths)
     assert eng.stats["last"]["mode"] == "interleaved"
@@ -175,9 +177,11 @@ def test_auto_fuse_cached_pass_matches(tmp_path, ckpt):
     assert eng.stats["last"]["mode"] == "cached"
     entry = _entry(eng)
     assert entry["mode"] == "mel_fused"
-    # the parts are views of the one flat block
-    assert all(db.untyped_storage().data_ptr() == entry["flat"].untyped_storage().data_ptr()
-               for _, db, _ in entry["parts"])
+    # the parts hold every batch, each part k*bs rows at its bucket's frames
+    ms = eng.ms
+    assert sum(db.shape[0] for _, db, _ in entry["parts"]) == len(plan) * eng.batch_size
+    assert all(db.shape == (n.shape[0], ms.frames_for_bucket(g[1]), ms.n_mels)
+               and n.shape[0] % eng.batch_size == 0 for g, db, n in entry["parts"])
     y3 = eng.predict_paths(paths)
     np.testing.assert_allclose(y2, y1, atol=1e-6)
     np.testing.assert_array_equal(y2, y3)
@@ -207,8 +211,8 @@ def test_partial_cache_over_cap(tmp_path, ckpt, monkeypatch, capsys):
     assert entry["mode"] == "mel" and len(entry["batches"]) == 2 and len(entry["cold"]) == 1
 
     scanned = []
-    orig = eng._scan_transport
-    monkeypatch.setattr(eng, "_scan_transport", lambda ps: (scanned.append(list(ps)) or orig(ps)))
+    orig = eng.fill.scan
+    monkeypatch.setattr(eng.fill, "scan", lambda ps: (scanned.append(list(ps)) or orig(ps)))
     y2 = eng.predict_paths(paths)
     last = eng.stats["last"]
     assert last["mode"] == "cached_partial" and eng.stats["cache_hits"] == 1
@@ -288,19 +292,24 @@ def test_async_fetch_partial_cache_resolves_eagerly(tmp_path, ckpt):
 
 
 def test_big_plan_fused_parts(tmp_path, ckpt, monkeypatch):
+    """Four batches of one shape under a part budget of two batches: two
+    concatenated parts of two batches each."""
     paths = _eq_paths(tmp_path)
-    monkeypatch.setattr(pl, "FUSE_WHOLE_MAX", 2)  # 4 batches > 2 -> parts
     y0 = _engine(ckpt, batch_size=2, cache_mb=0).predict_paths(paths)
     eng = _engine(ckpt, batch_size=2, cache_mb=256)
+    plan = eng.plan(paths)
+    assert len(plan) == 4 and len({g for g, _ in plan}) == 1
+    T, ms = plan[0][0][1], eng.ms
+    per_sample = T * ms.n_mels * ms.seg_length * 4 + 4 * T * T  # _fuse_plan_chunks' estimate
+    monkeypatch.setattr(pl, "_FUSE_CHUNK_BYTES", 2 * eng.batch_size * per_sample)
     warmed = eng.warmup(paths)
-    assert [r for s, _, r in warmed if s == "seg"] == [8]  # one part of 4 batches
+    assert [r for s, _, r in warmed if s == "seg"] == [4]  # parts of 2 batches
     y1 = eng.predict_paths(paths)
     assert _entry(eng)["mode"] == "mel"
     y2 = eng.predict_paths(paths)
     entry = _entry(eng)
-    assert entry["mode"] == "mel_fused_parts"
-    assert len(entry["parts"]) < 4
-    assert sum(db.shape[0] // eng.batch_size for _, db, _ in entry["parts"]) == 4
+    assert entry["mode"] == "mel_fused"
+    assert [db.shape[0] for _, db, _ in entry["parts"]] == [4, 4]
     y3 = eng.predict_paths(paths)
     assert eng.stats["last"]["mode"] == "cached"
     np.testing.assert_allclose(y1, y0, atol=1e-6)
@@ -353,8 +362,8 @@ def test_regimes_match_jax_engine(parity_corpus, ckpt, monkeypatch, regime):
     kw = {"precision": "highest", "fe_precision": "exact", "batch_size": 2}
     if regime == "python_fill":
         monkeypatch.setattr(pl.native, "available", lambda: False)
-    if regime == "fused_parts":
-        monkeypatch.setattr(pl, "FUSE_WHOLE_MAX", 1)
+    if regime == "fused_parts":  # a part budget under one batch: a part per batch
+        monkeypatch.setattr(pl, "_FUSE_CHUNK_BYTES", 1)
     if regime == "partial":
         full = _engine(ckpt, cache_mb=256, **kw)
         full.predict_paths(paths)
@@ -373,8 +382,10 @@ def test_regimes_match_jax_engine(parity_corpus, ckpt, monkeypatch, regime):
     else:
         y = eng.predict_paths(paths)
         mode = {"cached_fused": "mel_fused", "cached_per_batch": "mel",
-                "fused_parts": "mel_fused_parts", "partial": "mel"}[regime]
+                "fused_parts": "mel_fused", "partial": "mel"}[regime]
         assert _entry(eng)["mode"] == mode
+        if regime == "fused_parts":
+            assert len(_entry(eng)["parts"]) == len(plan)
         assert eng.stats["last"]["mode"] == ("cached_partial" if regime == "partial" else "cached")
     assert y.shape == y_ref.shape and np.isfinite(y).all()
     assert np.abs(y - y_ref).max() <= 1e-3
@@ -433,11 +444,12 @@ def test_ring_is_reused_and_bounded(tmp_path, ckpt):
     paths = [str(tmp_path / n) for n in names]
     eng = _engine(ckpt, batch_size=1, cache_mb=0)
     eng.warmup(paths)
-    ptrs = [s.buf.data_ptr() for s in eng._rings["i16"]]
+    rings = eng.fill.rings
+    ptrs = [s.buf.data_ptr() for s in rings["i16", 0, 1]]
     y1 = eng.predict_paths(paths)
     y2 = eng.predict_paths(paths)
-    assert list(eng._rings) == ["i16"] and len(eng._rings["i16"]) == pl.RING_SLOTS
-    assert [s.buf.data_ptr() for s in eng._rings["i16"]] == ptrs
+    assert list(rings) == [("i16", 0, 1)] and len(rings["i16", 0, 1]) == pl.RING_SLOTS
+    assert [s.buf.data_ptr() for s in rings["i16", 0, 1]] == ptrs
     np.testing.assert_array_equal(y1, y2)
     assert eng.stats["last"]["batches"] == 7
     assert {"fill_s", "wait_s", "dispatch_s", "block_s", "fetch_s"} <= set(eng.stats["last"])

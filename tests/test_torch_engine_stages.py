@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from nisqa_tpu_torch.compat.checkpoint import load_model_from_tar
 from nisqa_tpu_torch.data import pipeline as pl
+from nisqa_tpu_torch.data.fill import HostFill
 from nisqa_tpu_torch.data.pipeline import InferenceEngine, MsConfig
 from tests.test_e2e import _make_ckpt, _write_corpus
 from tests.test_e2e_de_eval import _make_de_ckpt
@@ -155,18 +156,18 @@ def test_the_filler_records_no_span_and_its_clocks_make_the_pass(corpora, decode
                                                                   monkeypatch):
     """Spans come from the main thread alone, none nested; the pass's
     ``fill_slot_s`` and ``fill_decode_s`` are the sums of what each
-    ``_make_batch`` returned, one call per batch and end; a fill called as
-    the train engine calls it records nothing."""
+    ``HostFill.batch`` returned, one call per batch and end; a fill called
+    as the train engine calls it records nothing."""
     ckpt, deg, ref = corpora[kind]
     log, got = [], []
     monkeypatch.setattr(pl, "_span", _recorder(log))
-    make = InferenceEngine._make_batch
+    make = HostFill.batch
 
     def timed(self, *a, **k):
         got.append(make(self, *a, **k))
         return got[-1]
 
-    monkeypatch.setattr(InferenceEngine, "_make_batch", timed)
+    monkeypatch.setattr(HostFill, "batch", timed)
     eng = _engine(ckpt, cache_mb=0)
     eng.predict_paths(deg, ref)
     last, ends = eng.stats["last"], 1 if ref is None else 2
@@ -183,8 +184,8 @@ def test_the_filler_records_no_span_and_its_clocks_make_the_pass(corpora, decode
     audio, _, plan = eng._scan_plan(deg, ref)
     gkey, chunk = plan[0]
     buf_len = pl.frame_geometry(eng.ms, gkey[0], gkey[1])[4]
-    slot = eng._host_buf(gkey[2])
-    eng._make_batch(slot, chunk, audio, deg, buf_len, gkey[2])
+    slot = eng.fill.slot(gkey[2], 0, eng.batch_size)
+    eng.fill.batch(slot, chunk, audio, deg, buf_len, gkey[2])
     slot.release()
     assert log == []
 

@@ -14,7 +14,8 @@ import torch
 from nisqa_tpu.audio.melspec import pad_audio_for_batch
 from nisqa_tpu.data import pipeline as jp
 from nisqa_tpu_torch.data import pipeline as tp
-from nisqa_tpu_torch.data.front_end import frame_geometry, mel_fn, seg_fn
+from nisqa_tpu_torch.data.fill import validate_filled_row
+from nisqa_tpu_torch.data.front_end import frame_geometry, front_end_consts, mel_fn, seg_fn
 from nisqa_tpu_torch.ops import _build
 from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference, fused_dft_mel
 from tests.test_e2e import TINY_ARGS
@@ -55,10 +56,10 @@ def test_moved_helpers_equal_originals(gid, args, sr, t_bucket, lengths):
         assert mj.frames_for_bucket(t_bucket) == mt.frames_for_bucket(t_bucket)
         for sr_got in (None, sr, sr + 1):
             assert (_outcome(jp.validate_filled_row, mj, "f.wav", n, sr, sr_got)
-                    == _outcome(tp.validate_filled_row, mt, "f.wav", n, sr, sr_got))
+                    == _outcome(validate_filled_row, mt, "f.wav", n, sr, sr_got))
     for transport in ("f32", "i16"):
         cj = jp.front_end_consts(mj, sr, transport)
-        ct = tp.front_end_consts(mt, sr, transport)
+        ct = front_end_consts(mt, sr, transport)
         assert cj.keys() == ct.keys()
         for k in cj:
             np.testing.assert_array_equal(cj[k], ct[k])
@@ -130,7 +131,7 @@ def test_mel_and_segments_match_jax(gid, args, sr, t_bucket, lengths):
 
     port = {}
     for transport, buf in bufs.items():
-        consts = tp.front_end_consts(ms_t, sr, transport)
+        consts = front_end_consts(ms_t, sr, transport)
         db_t, segs_t, nw_t = _port_front_end(ms_t, sr, t_bucket, consts, buf, n)
         cj = {k: jnp.asarray(v) for k, v in jp.front_end_consts(ms_j, sr, transport).items()}
         db_j = fe.mel_fn(cj, jnp.asarray(buf), jnp.asarray(n))

@@ -23,7 +23,8 @@ import pytest
 
 from nisqa_tpu_torch.audio.wav import write_wav
 from nisqa_tpu_torch.data import native
-from nisqa_tpu_torch.data.pipeline import InferenceEngine, MsConfig
+from nisqa_tpu_torch.data.fill import HostFill
+from nisqa_tpu_torch.data.pipeline import MsConfig
 from nisqa_tpu_torch.model import NisqaTorch
 from nisqa_tpu_torch.ops.dft_mel import dft_mel_reference
 from nisqa_tpu_torch.train import loop as port_loop
@@ -139,7 +140,7 @@ def test_warm_epoch_runs_no_host_fill_and_no_front_end(corpus, monkeypatch):
     def spy(name, fn):
         return lambda *a, **k: calls.append(name) or fn(*a, **k)
 
-    monkeypatch.setattr(InferenceEngine, "_make_batch", spy("make", InferenceEngine._make_batch))
+    monkeypatch.setattr(HostFill, "batch", spy("make", HostFill.batch))
     for name in ("fill_batch_i16", "fill_batch_f32"):
         monkeypatch.setattr(native, name, spy(name, getattr(native, name)))
     dft_calls.clear()

@@ -24,15 +24,18 @@ never prints its last line):
      the output's sha256 (frames seeded per case: ``--kernel-hashes``
      prints the hashes of the cases up to 64 bands alone, also for an
      older checkout's kernel);
-  3b. batch norm, ReLU and adaptive max-pool (``--bn-pool`` runs it alone):
-     ``bn_relu_adaptive_max_pool`` (``csrc/bn_relu_pool.cu``) at AdaptCNN's
-     pooled blocks of a NISQA_DE batch (2 x 32 rows at the bucket of 780
-     segments) and a NISQA_DIM one (32 rows), the 80-band first block, and
-     odd shapes: bit-equal to its plain version on the card, against the
-     chain it replaces (cuDNN's batch norm, ReLU, ``F.adaptive_max_pool2d``):
-     its largest difference and the outputs zero on one side only; CUDA-event
-     times of the kernel, the chain and the plain version beside the bytes
-     bound (x read and the output written once);
+  3b. the convolutions' eval epilogue (``--bn-pool`` runs it alone):
+     ``bn_relu_adaptive_max_pool`` and ``bias_bn_relu``
+     (``csrc/bn_relu_pool.cu``), given the convolution's bias, at AdaptCNN's
+     pooled blocks (1, 2, 4) and blocks 3, 5 and 6 of a NISQA_DE batch (2 x
+     32 rows at the bucket of 780 segments) and a NISQA_DIM one (32 rows),
+     the 80-band first block, and odd shapes: bit-equal to its plain version
+     on the card (the pooled kernel also to itself on the biased input),
+     against the chain it replaces (ATen's bias ``add_``, cuDNN's batch norm,
+     ReLU, ``F.adaptive_max_pool2d``): its largest difference and the
+     outputs zero on one side only; CUDA-event times of the kernel, the
+     chain and the plain version beside the bytes bound (x read and the
+     output written once);
   4. models: the released NISQA_DIM and NISQA-TTS weights
      (``tests/goldens/g2_dim.npz``, ``g3_tts.npz``) against their torch
      goldens at "highest" precision;
@@ -417,68 +420,96 @@ def kernel_hashes(seed: int, reps: int) -> dict:
 
 
 def bn_pool_cases():
-    """Phase 3b's (label, N, C, H, W, oh, ow): AdaptCNN's pooled blocks at
-    bs 32 and the bucket of 780 segments, both ends of a NISQA_DE batch
-    (2 x 32 rows) and a NISQA_DIM batch; the first block at 80 bands
-    (overlapping bins); odd shapes (4-byte copies, a ragged last tile)."""
+    """Phase 3b's (label, N, C, H, W, oh, ow): AdaptCNN's blocks at bs 32 and
+    the bucket of 780 segments, both ends of a NISQA_DE batch (2 x 32 rows)
+    and a NISQA_DIM batch; the pooled blocks (1, 2, 4), then blocks 3, 5 and
+    6 (oh, ow None: no pool); the first block at 80 bands (overlapping bins);
+    odd shapes (4-byte copies, a ragged last tile)."""
     blocks = [("block1", 16, 48, 15, 24, 7), ("block2", 32, 24, 7, 12, 5),
-              ("block4", 64, 12, 5, 6, 3)]
+              ("block4", 64, 12, 5, 6, 3), ("block3", 64, 12, 5, None, None),
+              ("block5", 64, 6, 3, None, None), ("block6", 64, 6, 1, None, None)]
     cases = [(f"{model} {name}", rows * 780, c, h, w, oh, ow)
              for model, rows in (("de", 2 * BATCH), ("dim", BATCH))
              for name, c, h, w, oh, ow in blocks]
     cases += [("dim block1 m80", BATCH * 780, 16, 80, 15, 24, 7),
-              ("odd 7x9", 1001, 5, 7, 9, 3, 4), ("odd 13x11", 333, 3, 13, 11, 6, 4)]
+              ("odd 7x9", 1001, 5, 7, 9, 3, 4), ("odd 13x11", 333, 3, 13, 11, 6, 4),
+              ("odd 7x9 flat", 1001, 5, 7, 9, None, None)]
     return cases
 
 
 def bn_pool_phase(seed: int, reps: int, card: str):
-    """Phase 3b: rows of results, one per ``bn_pool_cases`` case."""
-    from nisqa_tpu_torch.ops.bn_relu_pool import (bn_relu_adaptive_max_pool,
+    """Phase 3b: rows of results, one per ``bn_pool_cases`` case. Each
+    kernel takes the convolution's bias, as AdaptCNN's eval blocks give it;
+    the chain is what it replaces: ATen's bias ``add_``, cuDNN's batch norm,
+    ReLU (and ``F.adaptive_max_pool2d``)."""
+    from nisqa_tpu_torch.ops.bn_relu_pool import (bias_bn_relu, bias_bn_relu_reference,
+                                                  bn_relu_adaptive_max_pool,
                                                   bn_relu_adaptive_max_pool_reference)
 
     rows = []
     for label, n, c, h, w, oh, ow in bn_pool_cases():
         gen = torch.Generator("cuda").manual_seed(seed)
         x = torch.randn((n, c, h, w), generator=gen, device="cuda") * 2
-        mean, bias = (torch.randn(c, generator=gen, device="cuda") * 0.5 for _ in range(2))
+        mean, bias, conv_bias = (torch.randn(c, generator=gen, device="cuda") * 0.5
+                                 for _ in range(3))
         var = torch.rand(c, generator=gen, device="cuda") * 2 + 0.01
         weight = torch.randn(c, generator=gen, device="cuda")
-        params, hw = (mean, var, weight, bias), (oh, ow)
+        params, hw, pooled = (conv_bias, mean, var, weight, bias), (oh, ow), oh is not None
+        if pooled:
+            op = bn_relu_adaptive_max_pool
+
+            def kernel():
+                return bn_relu_adaptive_max_pool(x, *params, 1e-5, hw)
+
+            def plain():
+                return bn_relu_adaptive_max_pool_reference(x, *params, 1e-5, hw)
+        else:
+            op = bias_bn_relu
+
+            def kernel():
+                return bias_bn_relu(x, *params, 1e-5)
+
+            def plain():
+                return bias_bn_relu_reference(x, *params, 1e-5)
 
         def chain():
-            y = torch.nn.functional.batch_norm(x, mean, var, weight, bias, False, 0.0, 1e-5)
-            return torch.nn.functional.adaptive_max_pool2d(torch.relu(y), hw)
+            y = x + conv_bias[:, None, None]
+            y = torch.relu(torch.nn.functional.batch_norm(y, mean, var, weight, bias, False, 0.0,
+                                                          1e-5))
+            return torch.nn.functional.adaptive_max_pool2d(y, hw) if pooled else y
 
-        before = bn_relu_adaptive_max_pool.LAUNCHES
-        got = bn_relu_adaptive_max_pool(x, *params, 1e-5, hw)
-        plain = bn_relu_adaptive_max_pool_reference(x, *params, 1e-5, hw)
-        lib = chain()
+        before = op.LAUNCHES
+        got, ref, lib = kernel(), plain(), chain()
         torch.cuda.synchronize()
-        check(bn_relu_adaptive_max_pool.LAUNCHES == before + 1, f"{label}: no launch counted")
+        check(op.LAUNCHES == before + 1, f"{label}: no launch counted")
         err = float((got - lib).abs().max())
-        row = {"case": label, "x": [n, c, h, w], "out": [oh, ow],
-               "equal_plain": bool(torch.equal(got, plain)),
+        row = {"case": label, "op": op.__name__, "x": [n, c, h, w], "out": [oh, ow],
+               "equal_plain": bool(torch.equal(got, ref)),
                "zero_one_side_chain": int(((got == 0) != (lib == 0)).sum()),
                "max_abs_err_chain": err, "max_rel_err_chain": err / float(lib.abs().max()),
-               "repeat_bitwise_equal": bool(torch.equal(got, bn_relu_adaptive_max_pool(
-                   x, *params, 1e-5, hw)))}
-        del got, plain, lib
-        # enough launches a timing that the queue runs ahead of the host's dispatch
+               "repeat_bitwise_equal": bool(torch.equal(got, kernel()))}
+        del ref, lib
+        if pooled:  # the parent's form: the bias added to x, then the same kernel with none
+            row["equal_parent_form"] = bool(torch.equal(got, bn_relu_adaptive_max_pool(
+                x + conv_bias[:, None, None], torch.zeros_like(conv_bias), *params[1:], 1e-5,
+                hw)))
+        del got
+        # enough launches a timing that the queue runs ahead of the host's dispatch;
+        # each function's timings in a row after one call, so that its outputs'
+        # memory is in the allocator's cache and no timing waits for cudaMalloc
         iters = 10 if n * c * h * w >= 10_000_000 else 50
-        k_ms, c_ms, p_ms = [], [], []
-        for _ in range(reps):
-            k_ms.append(event_ms(lambda: bn_relu_adaptive_max_pool(x, *params, 1e-5, hw), iters))
-            c_ms.append(event_ms(chain, iters))
-            p_ms.append(event_ms(lambda: bn_relu_adaptive_max_pool_reference(
-                x, *params, 1e-5, hw), iters))
-        io_bytes = 4 * (n * c * (h * w + oh * ow) + 4 * c)
-        row.update(kernel_ms=float(np.median(k_ms)), chain_ms=float(np.median(c_ms)),
-                   plain_ms=float(np.median(p_ms)), bound_ms=1e3 * io_bytes / HBM_RATE,
-                   bound_by="bytes")
+        for key, fn in (("kernel_ms", kernel), ("chain_ms", chain), ("plain_ms", plain)):
+            fn()
+            row[key] = float(np.median([event_ms(fn, iters) for _ in range(reps)]))
+        out_floats = n * c * (oh * ow if pooled else h * w)
+        io_bytes = 4 * (n * c * h * w + out_floats + 5 * c)
+        row.update(bound_ms=1e3 * io_bytes / HBM_RATE, bound_by="bytes")
         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
         print("bn_pool " + json.dumps(row) + f" card: {card}", flush=True)
-        check(row["equal_plain"] and row["repeat_bitwise_equal"],
-              f"bn_relu_adaptive_max_pool differs from its plain version on the card: {row}")
+        check(row["equal_plain"] and row["repeat_bitwise_equal"]
+              and row.get("equal_parent_form", True),
+              f"{op.__name__} differs from its plain version or the parent's form on the card: "
+              f"{row}")
         rows.append(row)
         del x, params
         torch.cuda.empty_cache()
@@ -2233,8 +2264,9 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5, help="timed repetitions per kernel case")
     ap.add_argument("--dp-worker", metavar="JOB", help=argparse.SUPPRESS)  # a rank of phase 12
     ap.add_argument("--bn-pool", action="store_true",
-                    help="only run phase 3b (bn_relu_adaptive_max_pool against its plain "
-                         "version and the chain it replaces, with times)")
+                    help="only run phase 3b (bn_relu_adaptive_max_pool and bias_bn_relu "
+                         "against their plain versions and the chain they replace, with "
+                         "times)")
     ap.add_argument("--kernel-hashes", action="store_true",
                     help="only print the sha256 of the kernel's outputs at phase 3's shapes of "
                          "up to 64 mel bands and the kernel's times (kernel_hashes)")
@@ -2358,16 +2390,17 @@ def main(argv=None):
                              **m80_launches},
         # phases 12 and 16: per rank
         "launches_by_rank": {**dp_launches, **entry_launches},
-    }, {
-        "name": "bn_relu_adaptive_max_pool",
+    }] + [{
+        "name": name,
         "route": "cuda",
         "source": "nisqa_tpu_torch/csrc/bn_relu_pool.cu",
         "replaces": None,  # no TPU kernel: nisqa_tpu's batch norms and pools are plain XLA
-        "max_rel_err_chain": max(r["max_rel_err_chain"] for r in bn_pool_rows),
+        "max_rel_err_chain": max(r["max_rel_err_chain"] for r in bn_pool_rows if r["op"] == name),
         # phase 3b by case: the kernel, the chain it replaces, its plain version, the bound
         "cases": {r["case"]: {k: r[k] for k in ("x", "kernel_ms", "chain_ms", "plain_ms",
-                                                "bound_ms")} for r in bn_pool_rows},
-    }]}
+                                                "bound_ms")}
+                  for r in bn_pool_rows if r["op"] == name},
+    } for name in ("bn_relu_adaptive_max_pool", "bias_bn_relu")]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

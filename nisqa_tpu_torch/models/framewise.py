@@ -8,9 +8,12 @@ batch norm takes its statistics over the valid segments only
 rows; over the ranks of the process group that
 :func:`.modules.set_process_group` gives it) and the reference's dropout
 applies; eval runs the ``nn.BatchNorm*`` modules as they are, except that
-AdaptCNN's pooled blocks (1, 2 and 4) in eval without autograd (serving,
-validation) take batch norm, ReLU and pool as one op,
-:func:`..ops.bn_relu_pool.bn_relu_adaptive_max_pool`. Flattened
+every AdaptCNN block in eval without autograd (serving, validation) runs its
+convolution without the bias and then a hand-written epilogue that adds the
+bias and applies the batch norm and ReLU in one pass:
+:func:`..ops.bn_relu_pool.bn_relu_adaptive_max_pool`, with the pool, at
+blocks 1, 2 and 4, and :func:`..ops.bn_relu_pool.bias_bn_relu` at blocks 3,
+5 and 6. Flattened
 features use torch's channel-major order, and the module names are the reference's (StandardCNN's fc is ``fc_out``, Skip's
 is ``linear``), so released checkpoints load unchanged.
 """
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.bn_relu_pool import bn_relu_adaptive_max_pool
+from ..ops.bn_relu_pool import bias_bn_relu, bn_relu_adaptive_max_pool
 from .modules import dropout, dropout2d, length_mask, masked_batch_norm, max_pool2d
 
 
@@ -73,18 +76,34 @@ class AdaptCNN(_Stage):
         else:
             self.fc = None
 
-    def _block(self, i, x, w):
+    def _chain(self, i, x, w):
+        """Block ``i`` through its modules: the train step, and any forward
+        with autograd."""
         return F.relu(self._bn(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(x), w))
+
+    def _epilogue_inputs(self, i, x):
+        """Block ``i``'s convolution run without its bias, then the
+        epilogue's per-channel inputs: that bias, the batch norm's running
+        statistics and affine, all read at call time; and its eps."""
+        conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
+        y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation, conv.groups)
+        return y, conv.bias, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps
+
+    def _block(self, i, x, w):
+        """Block ``i``: convolution, batch norm, ReLU. In eval without
+        autograd the bias, batch norm and ReLU are one op over the output of
+        the convolution run without its bias."""
+        if self.training or torch.is_grad_enabled():
+            return self._chain(i, x, w)
+        return bias_bn_relu(*self._epilogue_inputs(i, x))
 
     def _pooled_block(self, i, x, w, pool):
         """Block ``i`` and its adaptive max-pool. In eval without autograd
-        the batch norm (its running statistics), ReLU and pool are one op
-        over the convolution's output."""
+        the bias, batch norm, ReLU and pool are one op over the output of
+        the convolution run without its bias."""
         if self.training or torch.is_grad_enabled():
-            return F.adaptive_max_pool2d(self._block(i, x, w), pool)
-        bn = getattr(self, f"bn{i}")
-        return bn_relu_adaptive_max_pool(getattr(self, f"conv{i}")(x), bn.running_mean,
-                                         bn.running_var, bn.weight, bn.bias, bn.eps, pool)
+            return F.adaptive_max_pool2d(self._chain(i, x, w), pool)
+        return bn_relu_adaptive_max_pool(*self._epilogue_inputs(i, x), pool)
 
     def forward(self, x, w=None):
         """x (N, 1, H, W) -> (N, fan_out); channel-major flatten like torch."""

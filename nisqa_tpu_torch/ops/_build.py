@@ -80,11 +80,16 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.nisqa_dft_mel.restype = ctypes.c_int
     lib.nisqa_bn_relu_pool.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,       # x, out, mean, var, weight, bias
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # x, out, conv_bias, mean, var, weight, bias
         ctypes.c_float, i64, i32,           # eps, planes, channels
         i32, i32, i32, i32, i32, ptr,       # h, w, oh, ow, tile_planes, stream
     ]
     lib.nisqa_bn_relu_pool.restype = ctypes.c_int
+    lib.nisqa_bias_bn_relu.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # x, out, conv_bias, mean, var, weight, bias
+        ctypes.c_float, i64, i32, i32, ptr,  # eps, numel, channels, plane, stream
+    ]
+    lib.nisqa_bias_bn_relu.restype = ctypes.c_int
     lib.nisqa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nisqa_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,16 +1,23 @@
-"""Eval-mode batch norm -> ReLU -> adaptive max-pool as one op
-(``nisqa_tpu_torch/ops/bn_relu_pool.py``, ``csrc/bn_relu_pool.cu``).
+"""The eval epilogue of AdaptCNN's convolutions
+(``nisqa_tpu_torch/ops/bn_relu_pool.py``, ``csrc/bn_relu_pool.cu``): conv
+bias, batch norm and ReLU with the adaptive max-pool
+(``bn_relu_adaptive_max_pool``, blocks 1, 2 and 4) and without it
+(``bias_bn_relu``, blocks 3, 5 and 6).
 
-On the CPU: the plain version against torch's chain at every pool geometry
-of the released checkpoints and shipped YAMLs, the 80- and 128-band heights
-(overlapping bins) and odd shapes, with negative, zero and zero-variance
-channels; an emulation of the kernel's arithmetic (both extremes of each
-bin, the affine once per output in ATen's CPU formula) held bit-equal to
-the chain; the kernel's tile plan; AdaptCNN's routing (eval without
-autograd through the op, train and eval with autograd as before, outputs
-and gradients equal to the parent's forward). On a card (marker ``cuda``):
-the kernel against the plain version run on the card, its launch count per
-trunk forward, and the inputs it refuses.
+On the CPU: the plain versions against torch's chain (the bias added, eval
+batch norm, ReLU, the pool) at every pool geometry of the released
+checkpoints and shipped YAMLs, blocks 3, 5 and 6's shapes, the 80- and
+128-band heights (overlapping bins) and odd shapes, with negative, zero and
+zero-variance channels; an emulation of the pooled kernel's arithmetic (both
+extremes of each bin, the bias and the affine once per output in ATen's CPU
+formula) held bit-equal to the chain; the pooled kernel's tile plan;
+AdaptCNN's routing (eval without autograd through the two ops within a few
+ulps of the parent's forward, whose CPU convolution adds its bias inside
+its sums; train and eval with autograd as before, outputs and gradients
+equal to the parent's forward). On a card (marker ``cuda``): each kernel
+against its plain version run on the card, the pooled kernel given the
+conv bias against the same kernel on the biased input, the launch counts
+per trunk forward, and the inputs the kernels refuse.
 """
 
 import copy
@@ -23,7 +30,8 @@ from nisqa_tpu_torch.data.pipeline import matmul_precision
 from nisqa_tpu_torch.models import framewise
 from nisqa_tpu_torch.models.framewise import AdaptCNN
 from nisqa_tpu_torch.ops import bn_relu_pool as bp
-from nisqa_tpu_torch.ops.bn_relu_pool import (bn_relu_adaptive_max_pool,
+from nisqa_tpu_torch.ops.bn_relu_pool import (bias_bn_relu, bias_bn_relu_reference,
+                                              bn_relu_adaptive_max_pool,
                                               bn_relu_adaptive_max_pool_reference)
 
 EPS = 1e-5
@@ -36,6 +44,12 @@ GEOMS = [
     (1, 7, 1, 1, 1, 1),
 ]
 GEOM_IDS = ["x".join(map(str, g)) for g in GEOMS]
+# (N, C, H, W) of the epilogue without a pool: AdaptCNN's blocks 3, 5 and 6
+# at 48 bands (any band count: blocks 3 to 6 follow the second pool), then
+# the pooled geometries' inputs as generic shapes (rows of C * H * W floats
+# not a multiple of 4 among them)
+FLAT_GEOMS = [(6, 64, 12, 5), (6, 64, 6, 3), (6, 64, 6, 1)] + [g[:4] for g in GEOMS]
+FLAT_IDS = ["x".join(map(str, g)) for g in FLAT_GEOMS]
 DIM_CFG = {"cnn_kernel_size": 3, "cnn_c_out_1": 16, "cnn_c_out_2": 32, "cnn_c_out_3": 64,
            "cnn_pool_1": [24, 7], "cnn_pool_2": [12, 5], "cnn_pool_3": [6, 3],
            "cnn_dropout": 0.2, "cnn_fc_out_h": None}
@@ -55,14 +69,22 @@ def bn_params(c, gen, device="cpu"):
     return tuple(t.to(device) for t in (mean, var, weight, bias))
 
 
-def chain(x, mean, var, weight, bias, out_hw):
-    y = F.batch_norm(x, mean, var, weight, bias, training=False, momentum=0.0, eps=EPS)
-    return F.adaptive_max_pool2d(F.relu(y), out_hw)
+def flat_chain(x, conv_bias, mean, var, weight, bias):
+    """The parent's eval block after its convolution: ``add_`` of the bias,
+    ``F.batch_norm`` with the running statistics, ReLU."""
+    y = F.batch_norm(x + conv_bias[:, None, None], mean, var, weight, bias, training=False,
+                     momentum=0.0, eps=EPS)
+    return F.relu(y)
 
 
-def emulate_kernel(x, mean, var, weight, bias, out_hw):
-    """The kernel's arithmetic: alpha, beta once a channel, each bin's max
-    and min, the affine once per output on the max (alpha >= 0) or the min."""
+def chain(x, conv_bias, mean, var, weight, bias, out_hw):
+    return F.adaptive_max_pool2d(flat_chain(x, conv_bias, mean, var, weight, bias), out_hw)
+
+
+def emulate_kernel(x, conv_bias, mean, var, weight, bias, out_hw):
+    """The pooled kernel's arithmetic: alpha, beta once a channel, each
+    bin's max and min, the bias added and the affine applied once per output
+    on the max (alpha >= 0) or the min."""
     oh, ow = out_hw
     h, w = x.shape[2:]
     alpha = torch.rsqrt(var + EPS) * weight
@@ -74,21 +96,26 @@ def emulate_kernel(x, mean, var, weight, bias, out_hw):
             w0, w1 = j * w // ow, -(-(j + 1) * w // ow)
             win = x[:, :, h0:h1, w0:w1]
             m = torch.where(alpha < 0, win.amin(dim=(2, 3)), win.amax(dim=(2, 3)))
-            out[:, :, i, j] = bp.fma(m, alpha, beta).clamp_min(0.0)
+            out[:, :, i, j] = bp.fma(m + conv_bias, alpha, beta).clamp_min(0.0)
     return out
 
 
 def case(geom, seed=0, device="cpu"):
-    """x drawn where it is used (the card's shapes reach 1.2 GB), the
-    parameters on the CPU."""
-    n, c, h, w, oh, ow = geom
+    """x (N, C, H, W) drawn where it is used (the card's shapes reach 1.2
+    GB); the per-channel inputs (conv bias, mean, var, weight, bias) drawn
+    on the CPU; the pool's (oh, ow) where ``geom`` gives one."""
+    n, c, h, w = geom[:4]
     x = torch.randn((n, c, h, w), generator=torch.Generator(device).manual_seed(seed),
                     device=device) * 2
-    return x, bn_params(c, torch.Generator().manual_seed(seed + 1), device), (oh, ow)
+    gen = torch.Generator().manual_seed(seed + 1)
+    conv_bias = (torch.randn(c, generator=gen) * 0.5).to(device)
+    return x, (conv_bias, *bn_params(c, gen, device)), tuple(geom[4:])
 
 
 @pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
 def test_plain_version_and_kernel_emulation_equal_the_chain(geom):
+    """The bias added once per output, to the bin's extreme, gives the bits
+    of adding it to every element first (rounding is monotone)."""
     x, params, out_hw = case(geom)
     ref = chain(x, *params, out_hw)
     assert torch.equal(bn_relu_adaptive_max_pool_reference(x, *params, EPS, out_hw), ref)
@@ -96,6 +123,16 @@ def test_plain_version_and_kernel_emulation_equal_the_chain(geom):
     before = bn_relu_adaptive_max_pool.LAUNCHES
     assert torch.equal(bn_relu_adaptive_max_pool(x, *params, EPS, out_hw), ref)
     assert bn_relu_adaptive_max_pool.LAUNCHES == before  # CPU: the plain version
+
+
+@pytest.mark.parametrize("geom", FLAT_GEOMS, ids=FLAT_IDS)
+def test_epilogue_plain_version_equals_the_chain(geom):
+    x, params, _ = case(geom)
+    ref = flat_chain(x, *params)
+    assert torch.equal(bias_bn_relu_reference(x, *params, EPS), ref)
+    before = bias_bn_relu.LAUNCHES
+    assert torch.equal(bias_bn_relu(x, *params, EPS), ref)
+    assert bias_bn_relu.LAUNCHES == before  # CPU: the plain version
 
 
 @pytest.mark.parametrize("geom", GEOMS, ids=GEOM_IDS)
@@ -117,21 +154,29 @@ def test_tile_plan_shrinks_then_refuses_planes_over_shared_memory():
 
 def test_wrapper_checks_shapes():
     x, params, out_hw = case(GEOMS[0])
+    for k in range(len(params)):  # each per-channel input cut short
+        cut = params[:k] + (params[k][:3],) + params[k + 1:]
+        with pytest.raises(ValueError, match="shape"):
+            bn_relu_adaptive_max_pool(x, *cut, EPS, out_hw)
+        with pytest.raises(ValueError, match="shape"):
+            bias_bn_relu(x, *cut, EPS)
     with pytest.raises(ValueError, match="N, C, H, W"):
         bn_relu_adaptive_max_pool(x[0], *params, EPS, out_hw)
-    with pytest.raises(ValueError, match="shape"):
-        bn_relu_adaptive_max_pool(x, params[0][:3], *params[1:], EPS, out_hw)
+    with pytest.raises(ValueError, match="N, C, H, W"):
+        bias_bn_relu(x[0], *params, EPS)
     with pytest.raises(ValueError, match="output_size"):
         bn_relu_adaptive_max_pool(x, *params, EPS, (0, 7))
 
 
 def parent_forward(m, x, w=None):
-    """AdaptCNN.forward as it was before the fused op."""
-    x = F.adaptive_max_pool2d(m._block(1, x, w), m.pools[0])
-    x = F.adaptive_max_pool2d(m._block(2, x, w), m.pools[1])
-    x = m._block(4, m._drop2d(m._block(3, m._drop2d(x), w)), w)
+    """AdaptCNN.forward as it was before the fused ops: every block through
+    its modules (convolution with its bias, batch norm, ReLU)."""
+    block = m._chain
+    x = F.adaptive_max_pool2d(block(1, x, w), m.pools[0])
+    x = F.adaptive_max_pool2d(block(2, x, w), m.pools[1])
+    x = block(4, m._drop2d(block(3, m._drop2d(x), w)), w)
     x = F.adaptive_max_pool2d(x, m.pools[2])
-    x = m._block(6, m._drop2d(m._block(5, m._drop2d(x), w)), w).flatten(1)
+    x = block(6, m._drop2d(block(5, m._drop2d(x), w)), w).flatten(1)
     return m.fc(x) if m.fc is not None else x
 
 
@@ -155,28 +200,41 @@ def adapt_cnn(h=48, device="cpu"):
 
 @pytest.fixture
 def op_calls(monkeypatch):
-    """Counts AdaptCNN's calls of the fused op."""
+    """AdaptCNN's calls of the two epilogue ops, in order: (op, x's shape,
+    the conv bias given)."""
     calls = []
 
-    def spy(*args, **kwargs):
-        calls.append(args[0].shape)
-        return bn_relu_adaptive_max_pool(*args, **kwargs)
+    def spy(op):
+        def call(x, conv_bias, *args):
+            calls.append((op.__name__, x.shape, conv_bias))
+            return op(x, conv_bias, *args)
+        return call
 
-    monkeypatch.setattr(framewise, "bn_relu_adaptive_max_pool", spy)
+    for op in (bn_relu_adaptive_max_pool, bias_bn_relu):
+        monkeypatch.setattr(framewise, op.__name__, spy(op))
     return calls
 
 
 @pytest.mark.parametrize("h", [48, 80])
 @pytest.mark.parametrize("grad_off", ["inference_mode", "no_grad"])
 def test_adaptcnn_eval_without_autograd_takes_the_op(op_calls, h, grad_off):
+    """Every block through an epilogue op, with its convolution's bias;
+    within 8 float32 ulps of the largest output of the parent's forward
+    (read: 2), whose CPU convolution adds the bias inside its sums where the
+    eval path adds it to the sums' result."""
     m, x = adapt_cnn(h)
     m.eval()
     with torch.no_grad():
         ref = parent_forward(m, x)
     with getattr(torch, grad_off)():
         got = m(x)
-    assert [s[1:] for s in op_calls] == [(16, h, 15), (32, 24, 7), (64, 12, 5)]
-    assert torch.equal(got, ref)
+    pooled, flat = "bn_relu_adaptive_max_pool", "bias_bn_relu"
+    assert [(op, s[1:]) for op, s, _ in op_calls] == [
+        (pooled, (16, h, 15)), (pooled, (32, 24, 7)), (flat, (64, 12, 5)),
+        (pooled, (64, 12, 5)), (flat, (64, 6, 3)), (flat, (64, 6, 1))]
+    assert all(b is getattr(m, f"conv{i}").bias for i, (_, _, b) in enumerate(op_calls, 1))
+    ulp = torch.finfo(torch.float32).eps * float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=0, atol=8 * ulp)
 
 
 def grads(m, x, out):
@@ -213,15 +271,19 @@ def card():
 # bs 32 at buckets 255 and 780 of the cells' plans (segments a file), each pooled block
 MAIN_GEOMS = [(32 * t, c, h, w, oh, ow) for t in (255, 780)
               for c, h, w, oh, ow in ((16, 48, 15, 24, 7), (32, 24, 7, 12, 5), (64, 12, 5, 6, 3))]
+# blocks 3, 5 and 6 at a NISQA_DIM batch (32 rows) and a NISQA_DE one (2 x 32)
+# at the bucket of 780 segments; block 1's 80-band input as a generic shape
+MAIN_FLAT = [(rows * 780, 64, h, w) for rows in (32, 64) for h, w in ((12, 5), (6, 3), (6, 1))]
+MAIN_FLAT += [(32 * 780, 16, 80, 15)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("geom", MAIN_GEOMS + GEOMS, ids=lambda g: "x".join(map(str, g)))
 def test_kernel_equals_plain_version_on_the_card(card, geom):
     """Tolerance 0 ulps: the kernel computes the plain version's formula
-    (rsqrt as the card's, one FMA an element) on each bin's extreme, and
-    max, min and ReLU are exact; so zeros fall exactly where the plain
-    version's do."""
+    (the bias added, rsqrt as the card's, one FMA an element) on each bin's
+    extreme, and max, min and ReLU are exact; so zeros fall exactly where
+    the plain version's do."""
     x, params, out_hw = case(geom, seed=3, device=card)
     before = bn_relu_adaptive_max_pool.LAUNCHES
     got = bn_relu_adaptive_max_pool(x, *params, EPS, out_hw)
@@ -240,23 +302,63 @@ def test_kernel_propagates_nan_and_takes_an_offset_input(card):
     # a contiguous view one float into its storage: the kernel's 4-byte copies
     flat = torch.randn(1 + 2 * 16 * 48 * 15, device=card)
     xs = flat[1:].view(2, 16, 48, 15)
-    params = bn_params(16, torch.Generator().manual_seed(5), card)
+    _, params, _ = case((1, 16, 1, 1), seed=5, device=card)
     assert torch.equal(bn_relu_adaptive_max_pool(xs, *params, EPS, (24, 7)),
                        bn_relu_adaptive_max_pool_reference(xs, *params, EPS, (24, 7)))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("geom", MAIN_GEOMS + GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_pooled_kernel_with_conv_bias_equals_the_parent_form(card, geom):
+    """The bias given to the kernel against the parent's form, ``add_``
+    then the same kernel with no bias (a zero one): 0 ulps (rounding is
+    monotone, so the bias added to a bin's extreme is the extreme of the
+    biased elements)."""
+    x, (conv_bias, *params), out_hw = case(geom, seed=6, device=card)
+    got = bn_relu_adaptive_max_pool(x, conv_bias, *params, EPS, out_hw)
+    x.add_(conv_bias[:, None, None])
+    parent = bn_relu_adaptive_max_pool(x, torch.zeros_like(conv_bias), *params, EPS, out_hw)
+    assert torch.equal(got, parent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", MAIN_FLAT + FLAT_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_epilogue_kernel_equals_plain_version_on_the_card(card, geom):
+    """Tolerance 0 ulps: the kernel computes the plain version's formula
+    (the bias added, rsqrt as the card's, one FMA an element, ReLU)."""
+    x, params, _ = case(geom, seed=7, device=card)
+    before = bias_bn_relu.LAUNCHES
+    got = bias_bn_relu(x, *params, EPS)
+    assert bias_bn_relu.LAUNCHES == before + 1
+    assert torch.equal(got, bias_bn_relu_reference(x, *params, EPS))
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_propagates_nan_and_takes_an_offset_input(card):
+    x, params, _ = case((3, 64, 6, 3), seed=8, device=card)
+    x[1, 2, 3, 1] = float("nan")
+    ref = bias_bn_relu_reference(x, *params, EPS)
+    got = bias_bn_relu(x, *params, EPS)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    assert got.isnan().sum() == ref.isnan().sum() == 1
+    # a contiguous view one float into its storage: the kernel's 4-byte accesses
+    flat = torch.randn(1 + 5 * 64 * 12 * 5, device=card)
+    xs = flat[1:].view(5, 64, 12, 5)
+    assert torch.equal(bias_bn_relu(xs, *params, EPS), bias_bn_relu_reference(xs, *params, EPS))
+
+
+@pytest.mark.cuda
 def test_launches_per_trunk_forward(card):
-    """3 launches per eval forward without autograd; 0 in a train step and
-    in an eval forward with autograd."""
+    """6 epilogue launches per eval forward without autograd (3 pooled, 3
+    not); 0 in a train step and in an eval forward with autograd."""
     m, x = adapt_cnn(device=card)
-    count = lambda: bn_relu_adaptive_max_pool.LAUNCHES  # noqa: E731
+    count = lambda: (bn_relu_adaptive_max_pool.LAUNCHES, bias_bn_relu.LAUNCHES)  # noqa: E731
     m.eval()
-    before = count()
+    p0, f0 = count()
     with torch.inference_mode():
         m(x)
         m(x)
-    assert count() == before + 6
+    assert count() == (p0 + 6, f0 + 6)
     with torch.no_grad(), matmul_precision("highest"):
         got, ref = m(x), parent_forward(m, x)
     # cuDNN's batch norm rounds a few ulps away (in TF32 convolutions an ulp
@@ -270,14 +372,33 @@ def test_launches_per_trunk_forward(card):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_other_inputs(card):
-    x, params, out_hw = case(GEOMS[0], device=card)
+@pytest.mark.parametrize("op", ["bn_relu_adaptive_max_pool", "bias_bn_relu"])
+def test_kernel_refuses_other_inputs(card, op):
+    x, params, out_hw = case(GEOMS[2], device=card)
+    pool = op == "bn_relu_adaptive_max_pool"
+
+    def call(x, *params, out_hw=out_hw):
+        if pool:
+            return bn_relu_adaptive_max_pool(x, *params, EPS, out_hw)
+        return bias_bn_relu(x, *params, EPS)
+
     with pytest.raises(ValueError, match="contiguous"):
-        bn_relu_adaptive_max_pool(x.to(memory_format=torch.channels_last), *params, EPS, out_hw)
+        call(x.to(memory_format=torch.channels_last), *params)
     with pytest.raises(ValueError, match="contiguous"):
-        bn_relu_adaptive_max_pool(x.transpose(2, 3), *params, EPS, (7, 24))
+        call(x.transpose(2, 3), *params, out_hw=out_hw[::-1])
+    for k in range(len(params)):  # each per-channel input in turn
+        other = torch.stack([params[k], params[k]], 1)[:, 0]  # strided
+        with pytest.raises(ValueError, match="contiguous"):
+            call(x, *params[:k], other, *params[k + 1:])
+        for dtype in (torch.float64, torch.bfloat16):
+            with pytest.raises(TypeError, match="float32"):
+                call(x, *params[:k], params[k].to(dtype), *params[k + 1:])
+        with pytest.raises(ValueError, match="several devices"):
+            call(x, *params[:k], params[k].cpu(), *params[k + 1:])
     for dtype in (torch.float64, torch.bfloat16):
         with pytest.raises(TypeError, match="float32"):
-            bn_relu_adaptive_max_pool(x.to(dtype), *params, EPS, out_hw)
-    with pytest.raises(ValueError, match="several devices"):
-        bn_relu_adaptive_max_pool(x, *(p.cpu() for p in params), EPS, out_hw)
+            call(x.to(dtype), *params)
+    with pytest.raises(ValueError, match="N, C, H, W"):
+        call(x.flatten(2), *params)
+    with pytest.raises(ValueError, match="shape"):
+        call(x[:, :32], *params)
